@@ -1,0 +1,131 @@
+"""The port as a package: it stands apart from JAX and the JAX package, its
+entry points run on the card unless the caller asks for the CPU, and a short
+training run through the CLI on the CPU writes its logs and checkpoint."""
+
+import ast
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import supervised_dispnet_tpu_torch
+from supervised_dispnet_tpu_torch.cli import train as train_cli
+from supervised_dispnet_tpu_torch.data.packed import write_split
+from supervised_dispnet_tpu_torch.models import DispResNet, get_disp_net
+from supervised_dispnet_tpu_torch.ops.cuda import losses as kl
+from supervised_dispnet_tpu_torch.training.trainer import (
+    BEST_NAME, CHECKPOINT_NAME, Trainer, TrainerConfig)
+
+REPO = Path(__file__).resolve().parents[1]
+PKG = Path(supervised_dispnet_tpu_torch.__file__).parent
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "supervised_dispnet_tpu")
+
+
+def _port_modules() -> list[str]:
+    return sorted(
+        ".".join(p.relative_to(REPO).with_suffix("").parts).removesuffix(".__init__")
+        for p in PKG.rglob("*.py"))
+
+
+def _forbidden(name: str) -> bool:
+    return any(name == f or name.startswith(f + ".") for f in FORBIDDEN)
+
+
+def test_importing_the_port_leaves_jax_and_the_jax_package_out():
+    """Every module of the port, and ``chip_smoke``, imported in a fresh
+    interpreter: neither ``jax`` nor ``supervised_dispnet_tpu`` (by exact
+    name or with a dot after it) appears in ``sys.modules``."""
+    mods = _port_modules() + ["chip_smoke"]
+    code = ("import importlib, json, sys\n"
+            f"for m in {mods!r}:\n"
+            "    importlib.import_module(m)\n"
+            "print(json.dumps(sorted(sys.modules)))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
+                         capture_output=True, text=True, timeout=300).stdout
+    loaded = json.loads(out.splitlines()[-1])
+    assert "supervised_dispnet_tpu_torch.training.trainer" in loaded
+    assert [m for m in loaded if _forbidden(m)] == []
+
+
+def test_no_source_of_the_port_imports_jax_or_the_jax_package():
+    """Also the imports inside functions, which an import does not run."""
+    files = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    bad = []
+    for f in files:
+        for node in ast.walk(ast.parse(f.read_text(), str(f))):
+            names = ([a.name for a in node.names] if isinstance(node, ast.Import)
+                     else [node.module or ""] if isinstance(node, ast.ImportFrom)
+                     else [])
+            bad += [f"{f.relative_to(REPO)}: {n}" for n in names if _forbidden(n)]
+    assert bad == []
+
+
+def test_entry_points_need_the_card_unless_asked_for_the_cpu(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is usable")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        get_disp_net("disp_res_18")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Trainer(TrainerConfig(), DispResNet(18))
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        train_cli.main([str(tmp_path), "--network", "disp_res_18"])
+    assert get_disp_net("disp_res_18", device="cpu").encoder.conv1.weight.device.type == "cpu"
+
+
+@pytest.mark.parametrize("argv,err", [
+    (["--bf16"], "--bf16"), (["--fused-upsample"], "--fused-upsample"),
+    (["--network", "dispnet"], "dispnet"), (["--loss", "classification"], "classification"),
+])
+def test_unported_cli_choices_raise(tmp_path, argv, err):
+    with pytest.raises(NotImplementedError, match=err):
+        train_cli.main([str(tmp_path), "--device", "cpu", "--network", "disp_res_18", *argv])
+
+
+def _packed_split(root: Path, H: int, W: int, n_train: int = 6, n_val: int = 4):
+    rng = np.random.default_rng(0)
+    K = np.array([[60.0, 0, W / 2], [0, 60.0, H / 2], [0, 0, 1]], np.float32)
+    for split, n in (("train", n_train), ("val", n_val)):
+        images = rng.integers(0, 256, (n, H, W, 3), dtype=np.uint8)
+        depth = rng.uniform(1, 80, (n, H, W)) * (rng.uniform(size=(n, H, W)) < 0.2)
+        write_split(root / split, images, np.stack([K, K]), [(0, n // 2), (n // 2, n)],
+                    depth.astype(np.float32))
+
+
+def test_cli_trains_two_steps_on_the_cpu_and_writes_logs_and_checkpoint(tmp_path, capsys):
+    H, W = 64, 96
+    _packed_split(tmp_path / "data", H, W)
+    launches = (kl.berhu_fwd_launches, kl.berhu_bwd_launches)
+    trainer = train_cli.main([
+        str(tmp_path / "data"), "--network", "disp_res_18", "--loss", "berhu", "-b", "2",
+        "--epoch-size", "2", "--epochs", "1", "--with-gt", "--use-pallas-losses",
+        "--device", "cpu", "--checkpoints-dir", str(tmp_path / "ck"), "--name", "t"])
+    assert trainer.step == 2
+    assert (kl.berhu_fwd_launches, kl.berhu_bwd_launches) == launches
+    printed = capsys.readouterr().out
+    assert "abs_rel=" in printed and "rmse=" in printed
+
+    run = Path(trainer.cfg.save_path)
+    for name in ("progress_log_summary.csv", "progress_log_full.csv", "metrics.jsonl",
+                 "trainer_meta.json", CHECKPOINT_NAME, BEST_NAME):
+        assert (run / name).is_file(), name
+    events = [json.loads(x) for x in (run / "metrics.jsonl").read_text().splitlines()]
+    iters = [e for e in events if e["event"] == "train_iter"]
+    assert [e["step"] for e in iters] == [1, 2]
+    assert all(np.isfinite(e["loss"]) for e in iters)
+    epoch = [e for e in events if e["event"] == "epoch"][0]
+    assert np.isfinite(epoch["abs_rel"]) and np.isfinite(epoch["rmse"])
+
+    ckpt = torch.load(run / CHECKPOINT_NAME, weights_only=False)
+    assert ckpt["step"] == 2
+    fresh = DispResNet(18)
+    fresh.load_state_dict(ckpt["state_dict"], strict=True)
+    for k, v in trainer.model.state_dict().items():
+        assert torch.equal(fresh.state_dict()[k], v), k
+
+    disp = trainer.predict(np.random.default_rng(1).uniform(size=(2, H, W, 3)))
+    assert disp.shape == (2, H, W)
+    assert ((disp >= 0.01) & (disp <= 10.01)).all()
