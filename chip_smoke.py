@@ -6,18 +6,34 @@ CUDA card. Run from the repository root with no arguments:
 
 Phases; any failure exits non-zero:
   1. print the card's name and power limit; build every CUDA kernel from
-     ``supervised_dispnet_tpu_torch/csrc`` (timed);
-  2. kernels: the BerHu kernel, forward and backward, against its plain
-     PyTorch version on the card at the main-path shape, ragged shapes, an
-     all-masked-out case and an all-quadratic case; CUDA-event timings;
-  3. slice: supervised BerHu training of DispResNet-50 at 128x416, B=4,
-     through ``cli.train.main`` on a packed split written here, with
-     validation against GT and ``Trainer.predict``; the kernels' launch
-     counts over that run; the steady-state step time and a profile of the
+     ``supervised_dispnet_tpu_torch/csrc`` (one ``nvcc`` per source, all
+     started together; timed);
+  2. kernels, each against its plain PyTorch version on the card:
+     - BerHu, forward and backward, at the main-path shape, ragged shapes, an
+       all-masked-out case and an all-quadratic case;
+     - the bilinear warp sampler's forward, image+coordinate backward and
+       coordinate-only backward, at the main-path shape with coordinates from
+       a real inverse-warp projection (both padding modes), random
+       out-of-bounds coordinates, C=1 and a ragged (3, 37, 53);
+     CUDA-event timings of each kernel, its plain version and, for the
+     sampler, ``F.grid_sample`` (the library yardstick, never on the path);
+  3. the main paths, each with every launch count set to 0 just before it
+     and read just after:
+     - supervised BerHu training of DispResNet-50 at 128x416, B=4, through
+       ``cli.train.main`` on a packed split written here, with validation
+       against GT and ``Trainer.predict``;
+     - self-supervised 3-frame training of DispNetS + PoseExpNet at 128x416,
+       B=4, through ``cli.train.main`` on a packed split without depth, so
+       validation runs without GT (8 forward and 8 coordinate-only warp
+       launches a train step, 8 forward launches a validation batch);
+     - ``ops.warp.inverse_warp`` with its default ``diff_img=True`` and a
+       backward into the image, depth and pose (the image+coordinate
+       backward's path), against the plain sampler on the card;
+     the steady-state step time of both training paths and a profile of the
      device time by kernel;
-  4. cross-check: one train step from identical weights on one batch, TF32
-     off: the card with the kernel against the card with the plain BerHu,
-     and against the CPU with the plain BerHu;
+  4. cross-checks, one train step from identical weights on one batch, TF32
+     off: each path on the card with its kernels against the card with the
+     plain versions, and against the CPU with the plain versions;
   5. a JSON line of the slice and cross-check numbers, a JSON line of kernel
      numbers, the card line, and as the last line
      ``{"ok": true, "device": {...}}``.
@@ -45,6 +61,8 @@ MAIN_SHAPE = (4, 128, 416)  # B, H, W of the main path (KITTI width, batch 4)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FP32_FLOPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 TPU_KERNEL = "supervised_dispnet_tpu/ops/pallas/losses.py"
+TPU_WARP = "supervised_dispnet_tpu/ops/pallas/warp.py"
+KITTI_K = ((241.7, 0.0, 208.0), (0.0, 246.3, 64.0), (0.0, 0.0, 1.0))  # at 128x416
 
 
 def card_line() -> str:
@@ -183,6 +201,173 @@ def kernel_phase(torch) -> dict:
     }
 
 
+def _projection_coords(torch, B: int, H: int, W: int, seed: int):
+    """Pixel coordinates as the main path's warp gets them: the target's
+    pixels back-projected at a depth of 1 / disparity (disparity in the
+    head's range) and projected into a reference frame moved by a small
+    random pose, with KITTI intrinsics (``ops.warp``'s own functions)."""
+    from supervised_dispnet_tpu_torch.ops import warp as wp
+
+    g = torch.Generator().manual_seed(seed)
+    disp = 10.0 * torch.sigmoid(torch.randn(B, H, W, generator=g)) + 0.01
+    pose = 0.02 * torch.randn(B, 6, generator=g)
+    K = torch.tensor(KITTI_K).expand(B, 3, 3) * torch.tensor(
+        [[W / 416, 1, W / 416], [1, H / 128, H / 128], [1, 1, 1]])
+    cam = wp.pixel2cam(1.0 / disp, torch.linalg.inv(K))
+    proj = K @ wp.pose_vec2mat(pose)
+    x, y, _ = wp.cam2pixel(cam, proj[:, :, :3], proj[:, :, 3:])
+    return x, y
+
+
+def _warp_case(torch, rng, shape, coords="projection", out_hw=None, seed=0,
+               device="cuda"):
+    """img (B, H, W, C) uniform in [-1, 1] (normalised images), coordinates
+    (B, Ho, Wo), an upstream gradient (B, Ho, Wo, C) uniform in [-1, 1];
+    all on the card. ``coords='random'`` spreads them over three times the
+    image, most out of bounds."""
+    B, H, W, C = shape
+    Ho, Wo = out_hw or (H, W)
+    if coords == "projection":
+        x, y = _projection_coords(torch, B, H, W, seed)
+    else:
+        x = torch.from_numpy(rng.uniform(-W, 2 * W, (B, Ho, Wo)).astype(np.float32))
+        y = torch.from_numpy(rng.uniform(-H, 2 * H, (B, Ho, Wo)).astype(np.float32))
+    img = rng.uniform(-1.0, 1.0, shape).astype(np.float32)
+    g = rng.uniform(-1.0, 1.0, (B, *x.shape[1:], C)).astype(np.float32)
+    dev = torch.device(device)
+    return (torch.from_numpy(img).to(dev), x.contiguous().to(dev), y.contiguous().to(dev),
+            torch.from_numpy(g).to(dev))
+
+
+def _plain_warp_grads(torch, img, x, y, g, mode):
+    """Value and (dimg, dx, dy) of the plain sampler by autograd."""
+    from supervised_dispnet_tpu_torch.ops.sampling import bilinear_sample
+
+    ins = [t.clone().requires_grad_(True) for t in (img, x, y)]
+    out = bilinear_sample(*ins, mode)
+    return out.detach(), torch.autograd.grad(out, ins, g)
+
+
+def warp_phase(torch, device: str = "cuda") -> dict:
+    """The three warp kernels against the plain sampler on the card, for the
+    values and every gradient each kernel forms. Tolerances: the sample, dx
+    and dy rtol 1e-5 / atol 1e-6 (unit-scale images and upstream gradient;
+    the kernel sums the same products in another order); dimg rtol 1e-4 /
+    atol 1e-5 (atomics change the order of its sums from run to run); the
+    coordinate-only backward's dx, dy bit-equal to the full backward's."""
+    from supervised_dispnet_tpu_torch.ops.cuda import warp as kw
+
+    rng = np.random.default_rng(3)
+    B, H, W = MAIN_SHAPE
+    main = f"main ({B},{H},{W},3)"
+    cases = {
+        f"{main} projection zeros": ((B, H, W, 3), "projection", None, "zeros"),
+        f"{main} projection border": ((B, H, W, 3), "projection", None, "border"),
+        f"{main} random out of bounds zeros": ((B, H, W, 3), "random", None, "zeros"),
+        "C=1 (2,64,208,1) random border": ((2, 64, 208, 1), "random", None, "border"),
+        "ragged (3,37,53,3) projection zeros": ((3, 37, 53, 3), "projection", None, "zeros"),
+        "ragged (3,37,53,3) -> (19,29) random border": ((3, 37, 53, 3), "random", (19, 29),
+                                                        "border"),
+    }
+    err = {"warp_fwd": 0.0, "warp_bwd": 0.0, "warp_bwd_coords": 0.0}
+    for i, (name, (shape, coords, out_hw, mode)) in enumerate(cases.items()):
+        img, x, y, g = _warp_case(torch, rng, shape, coords, out_hw, seed=10 + i,
+                                  device=device)
+        out_k = kw.warp_forward(img, x, y, mode)
+        dimg_k, dx_k, dy_k = kw.warp_backward(img, x, y, g, mode)
+        dx_c, dy_c = kw.warp_backward_coords(img, x, y, g, mode)
+        out_p, (dimg_p, dx_p, dy_p) = _plain_warp_grads(torch, img, x, y, g, mode)
+        torch.cuda.synchronize()
+        checks = {
+            "out": torch.allclose(out_k, out_p, rtol=1e-5, atol=1e-6),
+            "dx": torch.allclose(dx_k, dx_p, rtol=1e-5, atol=1e-6),
+            "dy": torch.allclose(dy_k, dy_p, rtol=1e-5, atol=1e-6),
+            "dimg": torch.allclose(dimg_k, dimg_p, rtol=1e-4, atol=1e-5),
+            "coords-only == full": torch.equal(dx_c, dx_k) and torch.equal(dy_c, dy_k),
+            "finite": bool(torch.isfinite(out_k).all() and torch.isfinite(dx_k).all()
+                           and torch.isfinite(dy_k).all() and torch.isfinite(dimg_k).all()),
+        }
+        e_f = float((out_k - out_p).abs().max())
+        e_c = max(float((dx_k - dx_p).abs().max()), float((dy_k - dy_p).abs().max()))
+        e_i = float((dimg_k - dimg_p).abs().max())
+        err["warp_fwd"] = max(err["warp_fwd"], e_f)
+        err["warp_bwd"] = max(err["warp_bwd"], e_c, e_i)
+        err["warp_bwd_coords"] = max(err["warp_bwd_coords"], e_c)
+        inb = float(((x >= 0) & (x <= shape[2] - 1) & (y >= 0) & (y <= shape[1] - 1))
+                    .float().mean())
+        print(f"  warp {name}: {inb:.1%} of coords in bounds; max abs err out {e_f:.3g}, "
+              f"dx/dy {e_c:.3g}, dimg {e_i:.3g}", flush=True)
+        bad = [k for k, ok in checks.items() if not ok]
+        if bad:
+            raise AssertionError(f"warp kernels disagree with the plain sampler on "
+                                 f"{name}: {bad}")
+
+    # timings at the main path's finest scale (zeros, projection coordinates)
+    F = torch.nn.functional
+    img, x, y, g = _warp_case(torch, rng, (B, H, W, 3), seed=1, device=device)
+    P, n_img = x.numel(), img.numel()
+    req = [t.clone().requires_grad_(True) for t in (img, x, y)]
+    from supervised_dispnet_tpu_torch.ops.sampling import bilinear_sample
+    out_full = bilinear_sample(req[0], req[1], req[2], "zeros")
+    out_coords = bilinear_sample(img, req[1], req[2], "zeros")
+    # the library: F.grid_sample(align_corners=True) on normalised
+    # coordinates computes the same function, NCHW
+    img_nchw = img.permute(0, 3, 1, 2).contiguous()
+    grid = torch.stack([x / (W - 1) * 2 - 1, y / (H - 1) * 2 - 1], dim=-1)
+    lib_in = img_nchw.clone().requires_grad_(True)
+    lib_grid = grid.clone().requires_grad_(True)
+    lib_full = F.grid_sample(lib_in, lib_grid, mode="bilinear", padding_mode="zeros",
+                             align_corners=True)
+    lib_coords = F.grid_sample(img_nchw, lib_grid, mode="bilinear", padding_mode="zeros",
+                               align_corners=True)
+    g_nchw = g.permute(0, 3, 1, 2).contiguous()
+    # atol: the normalisation's round trip moves x by ~ulp(400) = 3e-5 px,
+    # and a unit-scale noise image changes by up to ~2 per px
+    if not torch.allclose(lib_full.permute(0, 2, 3, 1), out_full, rtol=1e-5, atol=1e-3):
+        raise AssertionError("F.grid_sample(align_corners=True) is not the same function")
+    t = {
+        "fwd": cuda_ms(torch, lambda: kw.warp_forward(img, x, y)),
+        "fwd_plain": cuda_ms(torch, lambda: bilinear_sample(img, x, y)),
+        "fwd_lib": cuda_ms(torch, lambda: F.grid_sample(
+            img_nchw, grid, mode="bilinear", padding_mode="zeros", align_corners=True)),
+        "bwd": cuda_ms(torch, lambda: kw.warp_backward(img, x, y, g)),
+        "bwd_plain": cuda_ms(torch, lambda: torch.autograd.grad(
+            out_full, req, g, retain_graph=True)),
+        "bwd_lib": cuda_ms(torch, lambda: torch.autograd.grad(
+            lib_full, (lib_in, lib_grid), g_nchw, retain_graph=True)),
+        "coords": cuda_ms(torch, lambda: kw.warp_backward_coords(img, x, y, g)),
+        "coords_plain": cuda_ms(torch, lambda: torch.autograd.grad(
+            out_coords, req[1:], g, retain_graph=True)),
+        "coords_lib": cuda_ms(torch, lambda: torch.autograd.grad(
+            lib_coords, lib_grid, g_nchw, retain_graph=True)),
+    }
+    # the least each must move (img, x, y, g read once, outputs written
+    # once, f32) and do (~20 flops a pixel of corner setup, ~9 a channel of
+    # blend, ~14 a channel of dx/dy and 8 of dimg weights)
+    C = 3
+    bounds = {
+        "warp_fwd": bound_ms(4 * (n_img + 2 * P + P * C), P * (20 + 9 * C)),
+        "warp_bwd": bound_ms(4 * (n_img + 2 * P + P * C + n_img + 2 * P),
+                             P * (20 + 22 * C)),
+        "warp_bwd_coords": bound_ms(4 * (n_img + 2 * P + P * C + 2 * P), P * (20 + 14 * C)),
+    }
+    print(f"  warp {main}: fwd kernel_ms {t['fwd']:.5f} plain_ms "
+          f"{t['fwd_plain']:.5f} grid_sample_ms {t['fwd_lib']:.5f}; bwd kernel_ms "
+          f"{t['bwd']:.5f} plain_ms {t['bwd_plain']:.5f} grid_sample_ms {t['bwd_lib']:.5f}; "
+          f"coords bwd kernel_ms {t['coords']:.5f} plain_ms {t['coords_plain']:.5f} "
+          f"grid_sample_ms {t['coords_lib']:.5f}; bound_us "
+          + ", ".join(f"{k} {v[0] * 1e3:.3f}" for k, v in bounds.items()), flush=True)
+    src = "supervised_dispnet_tpu_torch/csrc/warp.cu"
+    return {
+        name: {"name": name, "route": "cuda", "source": src, "replaces": f"{TPU_WARP}:{line}",
+               "max_abs_err": err[name], "ms": t[key], "plain_ms": t[f"{key}_plain"],
+               "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+               "library_ms": t[f"{key}_lib"]}
+        for name, key, line in (("warp_fwd", "fwd", 114), ("warp_bwd", "bwd", 150),
+                                ("warp_bwd_coords", "coords", 197))
+    }
+
+
 class _Tee(io.TextIOBase):
     """Writes to the real stdout and keeps a copy."""
 
@@ -198,9 +383,9 @@ class _Tee(io.TextIOBase):
 
 
 def write_packed(root: Path, rng, H: int, W: int, n_train: int = 24,
-                 n_val: int = 8) -> None:
-    """A tiny packed dataset: random frames, ~10% sparse GT depth, two
-    scenes per split, KITTI-like intrinsics."""
+                 n_val: int = 8, with_depth: bool = True) -> None:
+    """A tiny packed dataset: random frames, ~10% sparse GT depth (or none),
+    two scenes per split, KITTI-like intrinsics."""
     from supervised_dispnet_tpu_torch.data.packed import write_split
 
     K = np.array([[241.7, 0.0, W / 2], [0.0, 246.3, H / 2], [0.0, 0.0, 1.0]],
@@ -209,7 +394,8 @@ def write_packed(root: Path, rng, H: int, W: int, n_train: int = 24,
         images = rng.integers(0, 256, (n, H, W, 3), dtype=np.uint8)
         depth = rng.uniform(1.0, 80.0, (n, H, W)) * (rng.uniform(size=(n, H, W)) < 0.1)
         write_split(root / split, images, np.stack([K, K]),
-                    [(0, n // 2), (n // 2, n)], depth.astype(np.float32))
+                    [(0, n // 2), (n // 2, n)],
+                    depth.astype(np.float32) if with_depth else None)
 
 
 def slice_phase(torch, tmp: Path, card: str, device: str = "cuda") -> dict:
@@ -238,12 +424,7 @@ def slice_phase(torch, tmp: Path, card: str, device: str = "cuda") -> dict:
     text = tee.buf.getvalue()
     if "abs_rel=" not in text or "rmse=" not in text:
         raise AssertionError("validation printed no abs_rel / rmse")
-    events = [json.loads(line) for line in
-              (Path(trainer.cfg.save_path) / "metrics.jsonl").read_text().splitlines()]
-    losses = [e["loss"] for e in events if e["event"] == "train_iter"]
-    epoch = [e for e in events if e["event"] == "epoch"][0]
-    if len(losses) != steps or not all(math.isfinite(v) for v in losses):
-        raise AssertionError(f"train losses not finite: {losses}")
+    losses, epoch = _read_run(trainer, steps)
     if not all(math.isfinite(epoch[k]) for k in ("abs_rel", "rmse", "a1")):
         raise AssertionError(f"validation metrics not finite: {epoch}")
 
@@ -256,7 +437,15 @@ def slice_phase(torch, tmp: Path, card: str, device: str = "cuda") -> dict:
     print(f"  predict: disparity {disp.shape} in [{disp.min():.4f}, "
           f"{disp.max():.4f}]", flush=True)
 
-    # steady state: the same step as the CLI ran, timed after warm-up
+    return {"launches": launches, "train_losses": losses,
+            "val": {k: epoch[k] for k in ("abs_rel", "rmse", "a1")},
+            **steady_step(torch, trainer, "DispResNet-50 BerHu", card)}
+
+
+def steady_step(torch, trainer, label: str, card: str, reps: int = 20) -> dict:
+    """The step the CLI ran, on one of its batches, timed by the host clock
+    over ``reps`` steps after 3 of warm-up, then profiled."""
+    B, H, W = MAIN_SHAPE
     train_loader, _ = trainer.make_loaders()
     batches = iter(train_loader)
     batch = trainer.prep_train_batch(next(batches))
@@ -264,24 +453,137 @@ def slice_phase(torch, tmp: Path, card: str, device: str = "cuda") -> dict:
     for _ in range(3):
         trainer.train_step(batch)
     torch.cuda.synchronize()
-    reps = 20
     t0 = time.perf_counter()
     for _ in range(reps):
         trainer.train_step(batch)
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) / reps * 1e3
-    print(f"  slice step: DispResNet-50 {H}x{W} B={B} fp32 BerHu train step "
-          f"{step_ms:.3f} ms, {B / step_ms * 1e3:.1f} img/s on {card}",
-          flush=True)
-    return {"launches": launches, "step_ms": step_ms, "train_losses": losses,
-            "val": {k: epoch[k] for k in ("abs_rel", "rmse", "a1")},
+    print(f"  slice step: {label} {H}x{W} B={B} fp32 train step {step_ms:.3f} ms, "
+          f"{B / step_ms * 1e3:.1f} img/s on {card}", flush=True)
+    return {"step_ms": step_ms,
             "profile": profile_steps(torch, lambda: trainer.train_step(batch))}
+
+
+def _read_run(trainer, steps: int) -> tuple[list, dict]:
+    """Train losses (checked finite, one a step) and the epoch's record from
+    the run's ``metrics.jsonl``."""
+    events = [json.loads(line) for line in
+              (Path(trainer.cfg.save_path) / "metrics.jsonl").read_text().splitlines()]
+    losses = [e["loss"] for e in events if e["event"] == "train_iter"]
+    if len(losses) != steps or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"train losses not finite: {losses}")
+    return losses, [e for e in events if e["event"] == "epoch"][0]
+
+
+def selfsup_phase(torch, tmp: Path, card: str, device: str = "cuda") -> dict:
+    """DispNetS + PoseExpNet self-supervised training through the CLI, as a
+    user runs it, on a split without depth (validation without GT)."""
+    from supervised_dispnet_tpu_torch.cli import train as train_cli
+    from supervised_dispnet_tpu_torch.ops.cuda import warp as kw
+
+    B, H, W = MAIN_SHAPE
+    write_packed(tmp / "data", np.random.default_rng(4), H, W, with_depth=False)
+    argv = [str(tmp / "data"), "--network", "dispnet", "--loss", "selfsup",
+            "--sequence-length", "3", "-p", "1.0", "-m", "0.2", "-s", "0.1",
+            "-b", str(B), "--epoch-size", "5", "--epochs", "1", "--use-pallas-warp",
+            "--device", device, "--checkpoints-dir", str(tmp / "ckpt"), "--name", "smoke"]
+    tee = _Tee(sys.stdout)
+    kw.warp_fwd_launches = kw.warp_bwd_launches = kw.warp_bwd_coords_launches = 0
+    with contextlib.redirect_stdout(tee):
+        trainer = train_cli.main(argv)
+    torch.cuda.synchronize()
+    launches = {"warp_fwd": kw.warp_fwd_launches, "warp_bwd": kw.warp_bwd_launches,
+                "warp_bwd_coords": kw.warp_bwd_coords_launches}
+    steps = trainer.step
+    val_batches = len(trainer.make_loaders()[1])
+    print(f"  selfsup slice: {steps} steps, {val_batches} validation batches; "
+          f"launches {launches}", flush=True)
+    # 4 scales x 2 refs: a forward and a coordinate-only backward per step,
+    # a forward per validation batch, no image gradient
+    want = {"warp_fwd": 8 * (steps + val_batches), "warp_bwd": 0,
+            "warp_bwd_coords": 8 * steps}
+    if steps < 5 or trainer.val_with_gt or launches != want:
+        raise AssertionError(f"expected launches {want} over {steps} steps and "
+                             f"{val_batches} validation batches without GT, got "
+                             f"{launches} (val_with_gt {trainer.val_with_gt})")
+    text = tee.buf.getvalue()
+    if "photo_loss=" not in text:
+        raise AssertionError("validation printed no photo_loss")
+    losses, epoch = _read_run(trainer, steps)
+    val = {k: epoch[k] for k in ("photo_loss", "exp_loss", "smooth_loss")}
+    if not all(math.isfinite(v) for v in val.values()):
+        raise AssertionError(f"validation losses not finite: {val}")
+    for name in ("exp_pose_checkpoint.pth.tar", "dispnet_checkpoint.pth.tar"):
+        if not (Path(trainer.cfg.save_path) / name).is_file():
+            raise AssertionError(f"no {name} written")
+    return {"launches": launches, "train_losses": losses, "val": val,
+            **steady_step(torch, trainer, "DispNetS + PoseExpNet selfsup", card)}
+
+
+def inverse_warp_phase(torch, device: str = "cuda") -> dict:
+    """``ops.warp.inverse_warp`` as a user calls it, with its default
+    ``diff_img=True``, at the main path's shape, and a backward into the
+    image, depth and pose: the image+coordinate kernel's path. Held against
+    the same call with the plain sampler on the card (the geometry is the
+    same code on the same device): warped rtol 1e-5 / atol 1e-6; depth and
+    pose gradients rtol 1e-4 of the largest; the image gradient rtol 1e-4 /
+    atol 1e-5 (atomics)."""
+    from supervised_dispnet_tpu_torch.ops import warp as wp
+    from supervised_dispnet_tpu_torch.ops.cuda import warp as kw
+    from supervised_dispnet_tpu_torch.ops.sampling import bilinear_sample
+
+    B, H, W = MAIN_SHAPE
+    gen = torch.Generator().manual_seed(5)
+    img = (torch.rand(B, H, W, 3, generator=gen) * 2 - 1).to(device)
+    depth = (1.0 / (10.0 * torch.sigmoid(torch.randn(B, H, W, generator=gen)) + 0.01)).to(device)
+    pose = (0.02 * torch.randn(B, 6, generator=gen)).to(device)
+    K = torch.tensor(KITTI_K).expand(B, 3, 3).contiguous().to(device)
+    cot = (torch.rand(B, H, W, 3, generator=gen) * 2 - 1).to(device)
+
+    def run():
+        ins = [t.clone().requires_grad_(True) for t in (img, depth, pose)]
+        warped, valid = wp.inverse_warp(ins[0], ins[1], ins[2], K)
+        grads = torch.autograd.grad((warped * cot * valid[..., None]).sum(), ins)
+        return warped.detach(), grads
+
+    kw.warp_fwd_launches = kw.warp_bwd_launches = kw.warp_bwd_coords_launches = 0
+    warped_k, grads_k = run()
+    torch.cuda.synchronize()
+    launches = {"warp_fwd": kw.warp_fwd_launches, "warp_bwd": kw.warp_bwd_launches,
+                "warp_bwd_coords": kw.warp_bwd_coords_launches}
+    if launches != {"warp_fwd": 1, "warp_bwd": 1, "warp_bwd_coords": 0}:
+        raise AssertionError(f"inverse_warp launched {launches}")
+    kernel_sample = wp.sample
+    wp.sample = lambda i, x, y, mode, diff_img: bilinear_sample(i, x, y, mode)
+    try:
+        warped_p, grads_p = run()
+    finally:
+        wp.sample = kernel_sample
+    errs = {"warped": float((warped_k - warped_p).abs().max())}
+    ok = torch.allclose(warped_k, warped_p, rtol=1e-5, atol=1e-6)
+    for name, a, b, atol in zip(("img", "depth", "pose"), grads_k, grads_p,
+                                (1e-5, None, None)):
+        scale = float(b.abs().max())
+        ok &= torch.allclose(a, b, rtol=1e-4, atol=atol if atol else 1e-4 * scale)
+        errs[name] = float((a - b).abs().max()) / max(scale, 1e-30)
+    print(f"  inverse_warp path: launches {launches}; max abs err warped "
+          f"{errs['warped']:.3g}; grad max err / max|g| img {errs['img']:.3g}, depth "
+          f"{errs['depth']:.3g}, pose {errs['pose']:.3g}", flush=True)
+    if not ok:
+        raise AssertionError(f"inverse_warp with the kernels disagrees with the plain "
+                             f"sampler: {errs}")
+    return {"launches": launches, "errors": errs}
+
+
+# the port's own kernels' names in a profile (csrc/*.cu)
+OWN_KERNELS = ("berhu_", "warp_forward_kernel", "warp_backward_kernel")
 
 
 def profile_steps(torch, step, n: int = 5, top: int = 12) -> dict:
     """Device time of ``n`` steps by kernel, from ``torch.profiler``: the
-    busy share of the steps' wall time and the ``top`` kernels by total
-    device time."""
+    busy share of the steps' wall time, the ``top`` kernels by total device
+    time, and the port's own kernels (their device time alone, where the
+    CUDA-event times of the kernel phase include the host's call)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -298,16 +600,24 @@ def profile_steps(torch, step, n: int = 5, top: int = 12) -> dict:
                and not e.is_user_annotation]
     busy_us = sum(e.self_device_time_total for e in kernels)
     kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
-    rows = [{"kernel": e.key[:90], "calls_per_step": e.count / n,
-             "ms_per_step": e.self_device_time_total / n / 1e3} for e in kernels[:top]]
+    def row(e):
+        return {"kernel": e.key[:90], "calls_per_step": e.count / n,
+                "ms_per_step": e.self_device_time_total / n / 1e3,
+                "us_per_call": e.self_device_time_total / max(e.count, 1)}
+
+    rows = [row(e) for e in kernels[:top]]
+    own = [row(e) for e in kernels if any(k in e.key for k in OWN_KERNELS)]
     print(f"  profile over {n} steps: device busy {busy_us / n / 1e3:.3f} ms of "
           f"{wall_us / n / 1e3:.3f} ms a step ({busy_us / wall_us:.1%}); "
           f"{len(kernels)} kernels", flush=True)
     for r in rows:
         print(f"    {r['ms_per_step']:8.3f} ms  x{r['calls_per_step']:<5g} {r['kernel']}",
               flush=True)
+    for r in own:
+        print(f"    own kernel: {r['kernel']}: x{r['calls_per_step']:g} a step, "
+              f"{r['us_per_call']:.2f} us a call on the device", flush=True)
     return {"steps": n, "wall_ms_per_step": wall_us / n / 1e3,
-            "busy_ms_per_step": busy_us / n / 1e3, "top": rows}
+            "busy_ms_per_step": busy_us / n / 1e3, "top": rows, "own_kernels": own}
 
 
 def _grads_agree(g, ref, rtol: float = 1e-3) -> tuple[bool, float]:
@@ -408,6 +718,98 @@ def cross_check(torch, device: str = "cuda") -> dict:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
 
 
+def _one_selfsup_step(torch, disp, pose, batch: dict, device, plain: bool = False):
+    """One self-supervised train step (DispNetS + PoseExpNet), augmentation
+    off; ``plain=True`` swaps the plain sampler in for the warp kernels.
+    Returns ({loss, photo_loss, exp_loss, smooth_loss}, {name: grad on the
+    CPU})."""
+    from supervised_dispnet_tpu_torch.data.augment import AugmentConfig
+    from supervised_dispnet_tpu_torch.ops import warp as wp
+    from supervised_dispnet_tpu_torch.ops.sampling import bilinear_sample
+    from supervised_dispnet_tpu_torch.training import train_step as ts
+
+    no_aug = AugmentConfig(flip=False, scale_crop=False, color_jitter=False)
+    opt = torch.optim.Adam(list(disp.parameters()) + list(pose.parameters()), lr=1e-4)
+    step = ts.make_selfsup_train_step(disp, pose, opt, aug=no_aug)
+    kernel_sample = wp.sample
+    if plain:
+        wp.sample = lambda i, x, y, mode, diff_img: bilinear_sample(
+            i if diff_img else i.detach(), x, y, mode)
+    try:
+        out = step({k: torch.from_numpy(v).to(device) for k, v in batch.items()})
+    finally:
+        wp.sample = kernel_sample
+    grads = {f"{tag}.{n}": p.grad.detach().cpu()
+             for tag, net in (("disp", disp), ("pose", pose))
+             for n, p in net.named_parameters()}
+    return {k: float(v) for k, v in out.items()}, grads
+
+
+def selfsup_cross_check(torch, device: str = "cuda") -> dict:
+    """One self-supervised train step at the main-path shape from identical
+    weights (the seeded init the CLI draws) on one batch, augmentation off,
+    TF32 off for cuDNN and matmul. The loss and its terms: rtol 1e-5 on the
+    card, 1e-4 against the CPU. Each gradient tensor by relative L2 norm,
+    within 1e-3.
+
+    - Card with the warp kernels against the card with the plain sampler:
+      the geometry runs the same code on the same device, so the warp's
+      coordinates are bit-identical and only the order of the sampler's sums
+      differs.
+    - The kernel path against itself, run again: the noise floor. The step
+      is not bit-reproducible on the card (the bilinear upsample's backward
+      and cuDNN's weight gradients sum with atomics), and a few weight
+      gradients whose terms cancel (DispNetS ``conv2.2``) differ from run to
+      run by ~4e-4 relative L2, elementwise up to ~1e-3 of their largest
+      entry; an elementwise rtol would measure that noise, not the kernels.
+    - Card (kernels) against the CPU (plain sampler).
+    """
+    from supervised_dispnet_tpu_torch.models import DispNetS, PoseExpNet
+
+    flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        B, H, W = MAIN_SHAPE
+        rng = np.random.default_rng(6)
+        batch = {"tgt": rng.integers(0, 256, (B, H, W, 3), dtype=np.uint8),
+                 "ref_imgs": rng.integers(0, 256, (B, 2, H, W, 3), dtype=np.uint8),
+                 "intrinsics": np.tile(np.array(KITTI_K, np.float32), (B, 1, 1))}
+        base = (DispNetS(generator=torch.Generator().manual_seed(0)),
+                PoseExpNet(generator=torch.Generator().manual_seed(1)))
+
+        def step(dev, plain):
+            return _one_selfsup_step(torch, *(copy.deepcopy(m).to(dev) for m in base),
+                                     batch, dev, plain=plain)
+
+        l_a, g_a = step(device, False)
+        report = {}
+        for other, (dev, plain) in (("card kernels rerun", (device, False)),
+                                    ("card plain", (device, True)),
+                                    ("cpu", ("cpu", True))):
+            l_b, g_b = step(dev, plain)
+            tag = f"selfsup DispNetS + PoseExpNet card vs {other}"
+            rtol = 1e-4 if dev == "cpu" else 1e-5
+            bad = [k for k in l_a if not math.isclose(l_a[k], l_b[k], rel_tol=rtol)]
+            if bad:
+                raise AssertionError(f"cross-check {tag}: {bad} {l_a} vs {l_b}")
+            rels = {n: _rel_l2(g_a[n], g_b[n]) for n in g_b}
+            worst = max(rels, key=rels.get)
+            report[tag] = {"loss": [l_a["loss"], l_b["loss"]], "terms": [l_a, l_b],
+                           "rel_l2_median": sorted(rels.values())[len(rels) // 2],
+                           "rel_l2_max": rels[worst], "rel_l2_worst": worst}
+            print(f"  cross-check {tag}: loss {l_a['loss']:.7g} / {l_b['loss']:.7g} "
+                  f"(photo {l_a['photo_loss']:.7g} / {l_b['photo_loss']:.7g}); "
+                  f"{len(rels)} gradients rel-L2 median "
+                  f"{report[tag]['rel_l2_median']:.3g} max {rels[worst]:.3g} ({worst})",
+                  flush=True)
+            if rels[worst] > 1e-3:
+                raise AssertionError(f"cross-check {tag}: gradient {worst} rel-L2 "
+                                     f"{rels[worst]:.3g} > 1e-3")
+        return report
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+
+
 def main() -> int:
     import torch
 
@@ -432,16 +834,27 @@ def main() -> int:
         regs = [ln.strip() for ln in log.splitlines() if "registers" in ln]
         print(f"  {name}: {'; '.join(regs) or 'already built'}", flush=True)
 
-    kernels = kernel_phase(torch)
+    kernels = {**kernel_phase(torch), **warp_phase(torch)}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        sl = slice_phase(torch, Path(tmp), card)
-    xc = cross_check(torch)
+        sl = slice_phase(torch, Path(tmp) / "berhu", card)
+        ss = selfsup_phase(torch, Path(tmp) / "selfsup", card)
+    iw = inverse_warp_phase(torch)
+    xc = {**cross_check(torch), **selfsup_cross_check(torch)}
 
+    # each kernel's launches on the path that runs it: BerHu on the
+    # supervised path, the forward and coordinate-only warp on the
+    # self-supervised one, the image+coordinate warp on inverse_warp's
+    launches = {**sl["launches"], **ss["launches"], "warp_bwd": iw["launches"]["warp_bwd"]}
     for name, entry in kernels.items():
-        entry["launches"] = sl["launches"][name]
-    print(json.dumps({"slice": {"step_ms": sl["step_ms"], "card": card,
-                                "val": sl["val"], "profile": sl["profile"]},
-                      "cross_check": xc}))
+        entry["launches"] = launches[name]
+    if not all(e["launches"] > 0 for e in kernels.values()):
+        raise AssertionError(f"a kernel was not launched on its path: {launches}")
+    print(json.dumps({"slices": {
+        name: {"step_ms": r["step_ms"], "card": card, "val": r["val"],
+               "launches": r["launches"], "profile": r["profile"]}
+        for name, r in (("supervised_berhu_dispresnet50", sl),
+                        ("selfsup_dispnet_posexpnet", ss))},
+        "inverse_warp": iw, "cross_check": xc}))
     print(json.dumps({"kernels": list(kernels.values())}))
     print(card)
     print(json.dumps({"ok": True, "device": {

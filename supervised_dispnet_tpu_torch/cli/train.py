@@ -1,8 +1,10 @@
 """Training CLI of the port, with the JAX CLI's flag spellings for the
-supervised path (``supervised_dispnet_tpu/cli/train.py``):
+supervised and self-supervised paths (``supervised_dispnet_tpu/cli/train.py``):
 
   python -m supervised_dispnet_tpu_torch.cli.train /data/kitti_packed \\
       --network disp_res_50 --loss berhu -b 4 --lr 2e-4 --epochs 80 --with-gt
+  python -m supervised_dispnet_tpu_torch.cli.train /data/kitti_packed \\
+      --network dispnet --loss selfsup --sequence-length 3 -p 1.0 -m 0.2 -s 0.1 -b 4
 
 Reads packed datasets (``data/packed.py``). Runs on the card unless
 ``--device cpu`` is given. A JAX flag whose feature is not ported yet raises
@@ -17,11 +19,9 @@ from pathlib import Path
 
 # JAX CLI flags of features that later slices port (see ROADMAP.md)
 _LATER_FLAGS = frozenset((
-    "--ema-decay", "--sequence-length", "--rotation-mode", "--padding-mode",
-    "-p", "--photo-loss-weight", "-m", "--mask-loss-weight", "-s",
-    "--smooth-loss-weight", "--num-bins", "--multiscale-classification",
+    "--ema-decay", "--num-bins", "--multiscale-classification",
     "--max-depth", "--imagenet-normalization", "--hue", "--half-res-photo",
-    "--stochastic-photo", "--use-pallas-warp", "--bf16", "--remat",
+    "--stochastic-photo", "--bf16", "--remat",
     "--fused-upsample", "--qat", "--debug-nans", "--loader",
     "--steps-per-dispatch", "--accum-steps", "--spatial-shards",
     "--profile-steps", "-f", "--training-output-freq", "--pretrained-disp",
@@ -32,17 +32,17 @@ _LATER_FLAGS = frozenset((
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
-        description="Supervised DispResNet training (PyTorch port, CUDA)",
+        description="Supervised and self-supervised depth training (PyTorch port, CUDA)",
         formatter_class=argparse.ArgumentDefaultsHelpFormatter)
     p.add_argument("data", help="packed dataset root (data/packed.py layout)")
     p.add_argument("--network", default="dispnet",
                    choices=["dispnet", "disp_res", "disp_res_18", "disp_res_50",
                             "disp_vgg_bn", "fcrn"],
-                   help="disp_res* are ported; the others raise")
+                   help="dispnet and disp_res* are ported; the others raise")
     p.add_argument("--loss", default="berhu",
                    choices=["l1", "berhu", "scale_invariant", "classification",
                             "selfsup"],
-                   help="l1, berhu and scale_invariant are ported; the others raise")
+                   help="classification is not ported yet and raises")
     p.add_argument("--epochs", type=int, default=200)
     p.add_argument("--epoch-size", type=int, default=0,
                    help="limit batches per epoch (0 = full)")
@@ -63,7 +63,17 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--weight-decay", type=float, default=0.0,
                    help="> 0: AdamW with this decoupled weight decay")
     p.add_argument("--with-gt", action="store_true",
-                   help="validate against GT depth (always on here)")
+                   help="accepted for flag compatibility: validation uses GT "
+                        "depth when the val split has it, else the "
+                        "self-supervised losses")
+    p.add_argument("--sequence-length", type=int, default=3,
+                   help="snippet length for --loss selfsup")
+    p.add_argument("--rotation-mode", default="euler", choices=["euler", "quat"])
+    p.add_argument("--padding-mode", default="zeros", choices=["zeros", "border"])
+    p.add_argument("-p", "--photo-loss-weight", type=float, default=1.0)
+    p.add_argument("-m", "--mask-loss-weight", type=float, default=0.2,
+                   help="explainability weight; 0 builds the pose net without masks")
+    p.add_argument("-s", "--smooth-loss-weight", type=float, default=0.1)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--img-height", type=int, default=128,
                    help="JPEG dump trees only: a packed split keeps its own size")
@@ -72,6 +82,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--use-pallas-losses", action="store_true",
                    help="accepted for flag compatibility: BerHu on the card "
                         "always runs the CUDA kernel")
+    p.add_argument("--use-pallas-warp", action="store_true",
+                   help="accepted for flag compatibility: the warp on the "
+                        "card always runs the CUDA kernels")
     p.add_argument("--name", default="exp", help="experiment name")
     p.add_argument("--checkpoints-dir", default="checkpoints")
     p.add_argument("--device", default="cuda",
@@ -95,7 +108,9 @@ def main(argv: list[str] | None = None):
     """Train; returns the ``Trainer``."""
     args = parse_args(argv)
 
-    from supervised_dispnet_tpu_torch.models import get_disp_net
+    import torch
+
+    from supervised_dispnet_tpu_torch.models import PoseExpNet, get_disp_net
     from supervised_dispnet_tpu_torch.training.trainer import Trainer, TrainerConfig
 
     timestamp = datetime.datetime.now().strftime("%m-%d-%H.%M")
@@ -105,12 +120,23 @@ def main(argv: list[str] | None = None):
         batch_size=args.batch_size, lr=args.lr, beta1=args.momentum,
         beta2=args.beta, weight_decay=args.weight_decay, seed=args.seed,
         lr_schedule=args.lr_schedule, lr_warmup_steps=args.lr_warmup_steps,
-        lr_decay_steps=args.lr_decay_steps, lr_decay_rate=args.lr_decay_rate)
+        lr_decay_steps=args.lr_decay_steps, lr_decay_rate=args.lr_decay_rate,
+        sequence_length=args.sequence_length, rotation_mode=args.rotation_mode,
+        padding_mode=args.padding_mode, photo_loss_weight=args.photo_loss_weight,
+        mask_loss_weight=args.mask_loss_weight,
+        smooth_loss_weight=args.smooth_loss_weight)
     model = get_disp_net(args.network, seed=args.seed, device=args.device)
-    trainer = Trainer(cfg, model, device=args.device)
+    pose_model = None
+    if args.loss == "selfsup":
+        # a stream of its own, so the disp net's weights do not depend on it
+        pose_model = PoseExpNet(nb_ref_imgs=args.sequence_length - 1,
+                                output_exp=args.mask_loss_weight > 0,
+                                generator=torch.Generator().manual_seed(args.seed + 1))
+    trainer = Trainer(cfg, model, pose_model, device=args.device)
     print(f"=> saving to {save_path}")
     best = trainer.fit()
-    print(f"=> best val abs_rel {best:.4f}")
+    metric = "abs_rel" if trainer.val_with_gt else "photo_loss"
+    print(f"=> best val {metric} {best:.4f}")
     return trainer
 
 

@@ -1,6 +1,9 @@
-"""Shared model building blocks: the disparity head, flax-matched BatchNorm
-and the initialisers. The port of ``supervised_dispnet_tpu/models/common.py``
-(NCHW inside the modules)."""
+"""Shared model building blocks: the conv+ELU blocks, the disparity head,
+flax-matched BatchNorm and the initialisers. The port of
+``supervised_dispnet_tpu/models/common.py`` (NCHW inside the modules).
+
+The blocks are ``nn.Sequential``s so that their layers carry the reference
+state dict's names (``conv{i}.0`` / ``.2``, ``upconv{i}.0``, ``iconv{i}.0``)."""
 
 from __future__ import annotations
 
@@ -15,11 +18,59 @@ DISP_ALPHA = 10.0
 DISP_BETA = 0.01
 
 
-def xavier_uniform_(conv: nn.Conv2d, generator: torch.Generator | None) -> None:
-    """flax ``xavier_uniform`` kernel, zero bias (flax ``nn.Conv`` defaults)."""
+def xavier_uniform_(conv: nn.Conv2d | nn.ConvTranspose2d,
+                    generator: torch.Generator | None) -> None:
+    """flax ``xavier_uniform`` kernel, zero bias (flax ``nn.Conv`` defaults).
+    The bound depends on fan_in + fan_out only, so a transposed conv's
+    (I, O, kh, kw) weight gets flax's bound too."""
     nn.init.xavier_uniform_(conv.weight, generator=generator)
     if conv.bias is not None:
         nn.init.zeros_(conv.bias)
+
+
+def init_convs_xavier_(module: nn.Module, generator: torch.Generator | None) -> None:
+    """xavier-uniform, zero-bias init of every (transposed) conv of ``module``,
+    in ``named_modules`` order."""
+    for m in module.modules():
+        if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
+            xavier_uniform_(m, generator)
+
+
+class ConvELU(nn.Sequential):
+    """k x k conv (padding (k-1)/2, optional stride) + ELU."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel: int = 3,
+                 stride: int = 1):
+        super().__init__(nn.Conv2d(in_channels, out_channels, kernel, stride=stride,
+                                   padding=(kernel - 1) // 2), nn.ELU())
+
+
+class DownsampleConv(nn.Sequential):
+    """stride-2 conv + ELU, then stride-1 conv + ELU (reference
+    ``downsample_conv``: layers ``0`` and ``2``)."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel: int = 3):
+        pad = (kernel - 1) // 2
+        super().__init__(
+            nn.Conv2d(in_channels, out_channels, kernel, stride=2, padding=pad), nn.ELU(),
+            nn.Conv2d(out_channels, out_channels, kernel, padding=pad), nn.ELU())
+
+
+class UpConvELU(nn.Sequential):
+    """2x transposed-conv upsample + ELU: ``ConvTranspose2d(k=3, stride=2,
+    padding=1, output_padding=1)``, which is what the JAX package's
+    ``nn.ConvTranspose(padding=((1, 2), (1, 2)))`` with a spatially flipped
+    kernel computes. The output is exactly twice the input."""
+
+    def __init__(self, in_channels: int, out_channels: int):
+        super().__init__(nn.ConvTranspose2d(in_channels, out_channels, 3, stride=2,
+                                            padding=1, output_padding=1), nn.ELU())
+
+
+def crop_like(x: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
+    """Crop NCHW ``x`` to ``ref``'s height and width (a transposed conv
+    overshoots odd sizes by one)."""
+    return x[:, :, : ref.shape[2], : ref.shape[3]]
 
 
 def kaiming_normal_(conv: nn.Conv2d, generator: torch.Generator | None) -> None:

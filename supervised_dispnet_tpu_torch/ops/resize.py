@@ -2,8 +2,9 @@
 
 ``F.interpolate(mode="bilinear", align_corners=False)`` matches
 ``jax.image.resize(..., "bilinear")`` only when upsampling: JAX antialiases
-when it downsamples and ``F.interpolate`` does not. So both functions here
-raise on a downsampling request.
+when it downsamples and ``F.interpolate`` does not. So the two bilinear
+functions here raise on a downsampling request. ``downsample2x_avg`` is the
+exact 2x2 mean of the photometric pyramid, not a resize.
 """
 
 from __future__ import annotations
@@ -27,3 +28,14 @@ def interpolate_bilinear(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
 def resize_bilinear(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
     """Bilinear upsample of (B, H, W, C) to (B, h, w, C)."""
     return interpolate_bilinear(x.permute(0, 3, 1, 2), h, w).permute(0, 2, 3, 1)
+
+
+def downsample2x_avg(x: torch.Tensor) -> torch.Tensor:
+    """2x2 mean of (B, H, W, C) -> (B, H / 2, W / 2, C), the photometric
+    loss's image pyramid (JAX ``ops/resize.py::downsample2x_avg``). Exact
+    average pooling, not an antialiased resize; H and W must be even, as
+    there."""
+    B, H, W, C = x.shape
+    if H % 2 or W % 2:
+        raise ValueError(f"downsample2x_avg needs even height and width, got {H}x{W}")
+    return x.reshape(B, H // 2, 2, W // 2, 2, C).mean(dim=(2, 4))

@@ -1,6 +1,7 @@
-"""Supervised train step and eval step, the port of
+"""Train and eval steps, the port of
 ``supervised_dispnet_tpu/training/train_step.py``
-(``make_supervised_train_step``, ``make_eval_step``).
+(``make_supervised_train_step``, ``make_selfsup_train_step``,
+``make_selfsup_eval_step``, ``make_eval_step``).
 
 The JAX step is one pure jitted function of (state, batch); here the model
 and optimizer hold the state and are updated in place, and PyTorch runs
@@ -17,6 +18,8 @@ import torch
 from supervised_dispnet_tpu_torch.data.augment import (
     AugmentConfig, augment_batch, normalize_images)
 from supervised_dispnet_tpu_torch.losses.metrics import compute_errors
+from supervised_dispnet_tpu_torch.losses.selfsup import (
+    explainability_loss, photometric_reconstruction_loss, smooth_loss)
 from supervised_dispnet_tpu_torch.losses.supervised import (
     berhu_loss, l1_loss, multiscale_supervised_loss, scale_invariant_loss)
 
@@ -95,6 +98,105 @@ def make_supervised_train_step(
         loss.backward()
         optimizer.step()
         return {"loss": loss.detach()}
+
+    return step
+
+
+def make_selfsup_train_step(
+    disp_model: torch.nn.Module,
+    pose_model: torch.nn.Module,
+    optimizer: torch.optim.Optimizer,
+    nb_ref_imgs: int = 2,
+    photo_weight: float = 1.0,
+    mask_weight: float = 0.2,
+    smooth_weight: float = 0.1,
+    rotation_mode: str = "euler",
+    padding_mode: str = "zeros",
+    aug: AugmentConfig = AugmentConfig(),
+    num_scales: int = 4,
+):
+    """Build the self-supervised step (photometric + explainability +
+    smoothness, BASELINE config 5): ``step(batch, generator=None,
+    draws=None) -> {"loss", "photo_loss", "exp_loss", "smooth_loss"}``, 0-d
+    tensors on the device. ``optimizer`` holds both nets' parameters, as the
+    JAX step applies one optax transform to ``{"disp", "pose"}``; both nets
+    are updated in place. ``mask_weight == 0`` drops the explainability term
+    (and the pose net's masks).
+
+    batch: {'tgt': (B, H, W, 3), 'ref_imgs': (B, R, H, W, 3), uint8 or
+    [0, 1] float; 'intrinsics': (B, 3, 3)}, on the models' device. The warps
+    run the CUDA kernels on the card and the plain sampler on the CPU. The
+    JAX step's other options (half-res, stochastic and remat photometric
+    terms, EMA, accumulation, QAT, a mesh) are not ported; see ROADMAP.md.
+    """
+    with_exp = mask_weight > 0
+
+    def step(batch: dict, generator: torch.Generator | None = None,
+             draws: dict | None = None) -> dict[str, torch.Tensor]:
+        snippet = torch.cat([imgs_to_float(batch["tgt"])[:, None],
+                             imgs_to_float(batch["ref_imgs"])], dim=1)
+        imgs, K = augment_batch(snippet, batch["intrinsics"], config=aug,
+                                generator=generator, draws=draws)
+        tgt = imgs[:, 0]
+        refs = [imgs[:, 1 + r] for r in range(nb_ref_imgs)]
+        disp_model.train()
+        pose_model.train()
+        optimizer.zero_grad(set_to_none=True)
+        disps = disp_model(tgt)[:num_scales]
+        exp_masks, pose = pose_model(tgt, refs)
+        exp_masks = exp_masks[:num_scales] if with_exp else None
+        photo, _ = photometric_reconstruction_loss(
+            tgt, refs, K, disps_to_depths(disps), exp_masks, pose,
+            rotation_mode=rotation_mode, padding_mode=padding_mode)
+        exp_l = (explainability_loss(exp_masks) if with_exp
+                 else torch.zeros((), dtype=torch.float32, device=tgt.device))
+        smooth = smooth_loss(disps)
+        loss = photo_weight * photo + mask_weight * exp_l + smooth_weight * smooth
+        loss.backward()
+        optimizer.step()
+        return {"loss": loss.detach(), "photo_loss": photo.detach(),
+                "exp_loss": exp_l.detach(), "smooth_loss": smooth.detach()}
+
+    return step
+
+
+def make_selfsup_eval_step(
+    disp_model: torch.nn.Module,
+    pose_model: torch.nn.Module,
+    nb_ref_imgs: int = 2,
+    rotation_mode: str = "euler",
+    padding_mode: str = "zeros",
+    num_scales: int = 4,
+    with_exp: bool = True,
+    aug: AugmentConfig | None = None,
+):
+    """Loss-only self-supervised validation (the reference's
+    ``validate_without_gt``): ``step(batch) -> {"photo_loss", "exp_loss",
+    "smooth_loss"}``, 0-d tensors on the device, no gradients.
+
+    batch: {'tgt', 'ref_imgs', 'intrinsics'}. With ``aug`` set, images arrive
+    raw (uint8 or [0, 1] float) and are normalised here.
+    """
+
+    def prep(x: torch.Tensor) -> torch.Tensor:
+        x = imgs_to_float(x)
+        return normalize_images(x, aug.mean, aug.std) if aug is not None else x
+
+    @torch.no_grad()
+    def step(batch: dict) -> dict[str, torch.Tensor]:
+        tgt = prep(batch["tgt"])
+        refs = [prep(batch["ref_imgs"][:, r]) for r in range(nb_ref_imgs)]
+        disp_model.eval()
+        pose_model.eval()
+        disps = disp_model(tgt)[:num_scales]
+        exp_masks, pose = pose_model(tgt, refs)
+        exp_masks = exp_masks[:num_scales] if with_exp else None
+        photo, _ = photometric_reconstruction_loss(
+            tgt, refs, batch["intrinsics"], disps_to_depths(disps), exp_masks, pose,
+            rotation_mode=rotation_mode, padding_mode=padding_mode)
+        exp_l = (explainability_loss(exp_masks) if with_exp
+                 else torch.zeros((), dtype=torch.float32, device=tgt.device))
+        return {"photo_loss": photo, "exp_loss": exp_l, "smooth_loss": smooth_loss(disps)}
 
     return step
 

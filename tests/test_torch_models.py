@@ -1,6 +1,8 @@
-"""The port's DispResNet against the JAX package's, on the CPU in fp32, with
-weights carried across by ``utils/convert.py::dispresnet_from_jax``.
-Tolerances follow ``test_checkpoint_convert.py``: rtol 1e-3 / atol 2e-4."""
+"""The port's models against the JAX package's, on the CPU in fp32, with
+weights carried across by ``utils/convert.py``. DispResNet: tolerances
+follow ``test_checkpoint_convert.py``, rtol 1e-3 / atol 2e-4 (train-mode BN
+and 50 layers). DispNetS and PoseExpNet (conv + ELU, no BN): rtol 1e-4 /
+atol 1e-5."""
 
 import jax
 import jax.numpy as jnp
@@ -8,13 +10,19 @@ import numpy as np
 import pytest
 import torch
 
+from supervised_dispnet_tpu.models import DispNetS as JaxDispNetS
 from supervised_dispnet_tpu.models import DispResNet as JaxDispResNet
+from supervised_dispnet_tpu.models import PoseExpNet as JaxPoseExpNet
+from supervised_dispnet_tpu.models import PoseNet as JaxPoseNet
+from supervised_dispnet_tpu.utils.checkpoint import convert_dispnet, convert_pose_exp_net
 from supervised_dispnet_tpu.ops.resize import resize_bilinear as jax_resize
 from supervised_dispnet_tpu.utils.convert_models import export_dispresnet_to_torch
-from supervised_dispnet_tpu_torch.models import DispResNet
-from supervised_dispnet_tpu_torch.ops.resize import resize_bilinear
-from supervised_dispnet_tpu_torch.utils.convert import dispresnet_from_jax
-from tests.torch_ref import TorchDispResNet
+from supervised_dispnet_tpu_torch.models import (
+    DispNetS, DispResNet, PoseExpNet, PoseNet, get_disp_net)
+from supervised_dispnet_tpu_torch.ops.resize import downsample2x_avg, resize_bilinear
+from supervised_dispnet_tpu_torch.utils.convert import (
+    dispnet_from_jax, dispresnet_from_jax, posexpnet_from_jax)
+from tests.torch_ref import TorchDispNetS, TorchDispResNet, TorchPoseExpNet
 
 
 def _randomize(tree, rng, positive=False):
@@ -135,3 +143,134 @@ def test_resize_bilinear_refuses_downsampling():
 def test_unported_variants_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         DispResNet(18, **kw)
+
+
+def _perturb_biases(tree, rng):
+    """flax inits biases at 0; perturb them so the converters' bias mapping
+    is exercised."""
+    def leaf(path, x):
+        x = np.asarray(x)
+        if str(path[-1]).endswith("bias']"):
+            return (0.1 * rng.standard_normal(x.shape)).astype(np.float32)
+        return x
+    return jax.tree_util.tree_map_with_path(leaf, tree)
+
+
+# (B, H, W): 64x96 and a size that is odd at several encoder levels
+SELFSUP_SHAPES = [(2, 64, 96), (1, 36, 52)]
+
+
+@pytest.mark.parametrize("B,H,W", SELFSUP_SHAPES)
+def test_dispnet_forward_matches_jax(B, H, W):
+    jmodel = JaxDispNetS()
+    v = jax.jit(jmodel.init)(jax.random.PRNGKey(0), jnp.zeros((B, H, W, 3)))
+    params = _perturb_biases(jax.device_get(v["params"]), np.random.default_rng(0))
+    x = np.random.default_rng(1).standard_normal((B, H, W, 3)).astype(np.float32)
+    ref = jmodel.apply({"params": params}, jnp.asarray(x))
+    model = DispNetS()
+    model.load_state_dict(dispnet_from_jax(params), strict=True)
+    with torch.no_grad():
+        got = model(torch.from_numpy(x))
+    assert len(got) == 4
+    for g, r in zip(got, ref):
+        assert tuple(g.shape) == r.shape
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("B,H,W", SELFSUP_SHAPES)
+@pytest.mark.parametrize("output_exp", [True, False])
+def test_posexpnet_forward_matches_jax(B, H, W, output_exp):
+    jmodel = JaxPoseExpNet(nb_ref_imgs=2, output_exp=output_exp)
+    rng = np.random.default_rng(2)
+    tgt, r1, r2 = (rng.standard_normal((B, H, W, 3)).astype(np.float32) for _ in range(3))
+    v = jax.jit(jmodel.init)(jax.random.PRNGKey(1), jnp.asarray(tgt),
+                             [jnp.asarray(r1), jnp.asarray(r2)])
+    params = _perturb_biases(jax.device_get(v["params"]), rng)
+    ref_masks, ref_pose = jmodel.apply({"params": params}, jnp.asarray(tgt),
+                                       [jnp.asarray(r1), jnp.asarray(r2)])
+    model = PoseExpNet(nb_ref_imgs=2, output_exp=output_exp)
+    model.load_state_dict(posexpnet_from_jax(params, output_exp), strict=True)
+    with torch.no_grad():
+        masks, pose = model(torch.from_numpy(tgt), [torch.from_numpy(r1), torch.from_numpy(r2)])
+    assert tuple(pose.shape) == (B, 2, 6)
+    np.testing.assert_allclose(pose.numpy(), np.asarray(ref_pose), rtol=1e-4, atol=1e-7)
+    if not output_exp:
+        assert masks is None and ref_masks is None
+        return
+    for g, r in zip(masks, ref_masks):
+        assert tuple(g.shape) == r.shape
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=1e-4, atol=1e-5)
+
+
+def test_posenet_matches_jax():
+    jmodel = JaxPoseNet(nb_ref_imgs=2)
+    rng = np.random.default_rng(3)
+    imgs = [rng.standard_normal((1, 64, 96, 3)).astype(np.float32) for _ in range(3)]
+    v = jax.jit(jmodel.init)(jax.random.PRNGKey(2), jnp.asarray(imgs[0]),
+                             [jnp.asarray(i) for i in imgs[1:]])
+    params = _perturb_biases(jax.device_get(v["params"]), rng)
+    ref = jmodel.apply({"params": params}, jnp.asarray(imgs[0]),
+                       [jnp.asarray(i) for i in imgs[1:]])
+    model = PoseNet(nb_ref_imgs=2)
+    model.load_state_dict(posexpnet_from_jax(params["PoseExpNet_0"], output_exp=False),
+                          strict=True)
+    with torch.no_grad():
+        got = model(torch.from_numpy(imgs[0]), [torch.from_numpy(i) for i in imgs[1:]])
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-4, atol=1e-7)
+
+
+def test_selfsup_converters_invert_the_jax_package_converters():
+    """Reference-layout state dicts (``tests/torch_ref.py``) through the JAX
+    package's ``convert_dispnet`` / ``convert_pose_exp_net`` and back through
+    the port's converters come out unchanged, transposed-conv kernels
+    included; both load ``strict=True`` into the reference modules."""
+    torch.manual_seed(0)
+    for ref, to_jax, back in (
+            (TorchDispNetS(), convert_dispnet, dispnet_from_jax),
+            (TorchPoseExpNet(nb_ref_imgs=2), convert_pose_exp_net, posexpnet_from_jax)):
+        sd = {k: v.detach() for k, v in ref.state_dict().items()}
+        got = back(to_jax(sd))
+        assert set(got) == set(sd)
+        for k in sd:
+            np.testing.assert_array_equal(got[k].numpy(), sd[k].numpy(), err_msg=k)
+        ref.load_state_dict(got, strict=True)
+
+
+@pytest.mark.parametrize("B,H,W", [(2, 64, 128)])
+def test_selfsup_models_interchange_with_reference_layout(B, H, W):
+    """The port loads the reference modules' state dicts strictly and gives
+    their forward (a size where the reference's 2x decoder resize equals the
+    JAX package's resize to the skip's size)."""
+    torch.manual_seed(1)
+    x = torch.randn(B, H, W, 3)
+    refs = [torch.randn(B, H, W, 3) for _ in range(2)]
+    ref_d, port_d = TorchDispNetS().eval(), DispNetS().eval()
+    port_d.load_state_dict(ref_d.state_dict(), strict=True)
+    ref_p, port_p = TorchPoseExpNet(nb_ref_imgs=2).eval(), PoseExpNet(nb_ref_imgs=2).eval()
+    port_p.load_state_dict(ref_p.state_dict(), strict=True)
+    with torch.no_grad():
+        a, b = port_d(x), ref_d(x.permute(0, 3, 1, 2))
+        (ma, pa), (mb, pb) = (port_p(x, refs),
+                              ref_p(x.permute(0, 3, 1, 2), [r.permute(0, 3, 1, 2) for r in refs]))
+    for g, r in zip(a, b):
+        np.testing.assert_allclose(g.numpy(), r.permute(0, 2, 3, 1).numpy(), rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(pa.numpy(), pb.numpy(), rtol=1e-5, atol=1e-7)
+    for g, r in zip(ma, mb):
+        np.testing.assert_allclose(g.numpy(), r.permute(0, 2, 3, 1).numpy(), rtol=1e-5, atol=1e-6)
+
+
+def test_registry_serves_dispnet():
+    model = get_disp_net("dispnet", device="cpu")
+    assert isinstance(model, DispNetS)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        get_disp_net("disp_vgg_bn", device="cpu")
+
+
+def test_downsample2x_avg_matches_jax():
+    from supervised_dispnet_tpu.ops.resize import downsample2x_avg as jax_down
+
+    x = np.random.default_rng(7).standard_normal((2, 32, 64, 3)).astype(np.float32)
+    np.testing.assert_allclose(downsample2x_avg(torch.from_numpy(x)).numpy(),
+                               np.asarray(jax_down(jnp.asarray(x))), rtol=1e-6, atol=1e-7)
+    with pytest.raises(ValueError, match="even"):
+        downsample2x_avg(torch.zeros(1, 5, 8, 3))

@@ -1,6 +1,7 @@
 """The port as a package: it stands apart from JAX and the JAX package, its
-entry points run on the card unless the caller asks for the CPU, and a short
-training run through the CLI on the CPU writes its logs and checkpoint."""
+entry points run on the card unless the caller asks for the CPU, and short
+training runs through the CLI on the CPU (supervised, and self-supervised
+on a split without GT) write their logs and checkpoints."""
 
 import ast
 import json
@@ -15,10 +16,12 @@ import torch
 import supervised_dispnet_tpu_torch
 from supervised_dispnet_tpu_torch.cli import train as train_cli
 from supervised_dispnet_tpu_torch.data.packed import write_split
-from supervised_dispnet_tpu_torch.models import DispResNet, get_disp_net
+from supervised_dispnet_tpu_torch.models import DispNetS, DispResNet, PoseExpNet, get_disp_net
 from supervised_dispnet_tpu_torch.ops.cuda import losses as kl
+from supervised_dispnet_tpu_torch.ops.cuda import warp as kw
 from supervised_dispnet_tpu_torch.training.trainer import (
-    BEST_NAME, CHECKPOINT_NAME, Trainer, TrainerConfig)
+    BEST_NAME, CHECKPOINT_NAME, POSE_BEST_NAME, POSE_CHECKPOINT_NAME, Trainer,
+    TrainerConfig)
 
 REPO = Path(__file__).resolve().parents[1]
 PKG = Path(supervised_dispnet_tpu_torch.__file__).parent
@@ -78,21 +81,24 @@ def test_entry_points_need_the_card_unless_asked_for_the_cpu(tmp_path):
 
 @pytest.mark.parametrize("argv,err", [
     (["--bf16"], "--bf16"), (["--fused-upsample"], "--fused-upsample"),
-    (["--network", "dispnet"], "dispnet"), (["--loss", "classification"], "classification"),
+    (["--network", "disp_vgg_bn"], "disp_vgg_bn"),
+    (["--loss", "classification"], "classification"),
+    (["--loss", "selfsup", "--half-res-photo"], "--half-res-photo"),
 ])
 def test_unported_cli_choices_raise(tmp_path, argv, err):
     with pytest.raises(NotImplementedError, match=err):
         train_cli.main([str(tmp_path), "--device", "cpu", "--network", "disp_res_18", *argv])
 
 
-def _packed_split(root: Path, H: int, W: int, n_train: int = 6, n_val: int = 4):
+def _packed_split(root: Path, H: int, W: int, n_train: int = 6, n_val: int = 4,
+                  with_depth: bool = True):
     rng = np.random.default_rng(0)
     K = np.array([[60.0, 0, W / 2], [0, 60.0, H / 2], [0, 0, 1]], np.float32)
     for split, n in (("train", n_train), ("val", n_val)):
         images = rng.integers(0, 256, (n, H, W, 3), dtype=np.uint8)
         depth = rng.uniform(1, 80, (n, H, W)) * (rng.uniform(size=(n, H, W)) < 0.2)
         write_split(root / split, images, np.stack([K, K]), [(0, n // 2), (n // 2, n)],
-                    depth.astype(np.float32))
+                    depth.astype(np.float32) if with_depth else None)
 
 
 def test_cli_trains_two_steps_on_the_cpu_and_writes_logs_and_checkpoint(tmp_path, capsys):
@@ -129,3 +135,43 @@ def test_cli_trains_two_steps_on_the_cpu_and_writes_logs_and_checkpoint(tmp_path
     disp = trainer.predict(np.random.default_rng(1).uniform(size=(2, H, W, 3)))
     assert disp.shape == (2, H, W)
     assert ((disp >= 0.01) & (disp <= 10.01)).all()
+
+
+def test_cli_trains_selfsup_two_steps_on_the_cpu_without_gt(tmp_path, capsys):
+    """``--loss selfsup --network dispnet`` on a split with no GT depth:
+    two steps, validation with the self-supervised losses, both nets'
+    checkpoints, which reload ``strict=True``."""
+    H, W = 32, 64
+    _packed_split(tmp_path / "data", H, W, n_train=8, n_val=6, with_depth=False)
+    launches = (kw.warp_fwd_launches, kw.warp_bwd_launches, kw.warp_bwd_coords_launches)
+    trainer = train_cli.main([
+        str(tmp_path / "data"), "--network", "dispnet", "--loss", "selfsup",
+        "--sequence-length", "3", "-p", "1.0", "-m", "0.2", "-s", "0.1", "-b", "2",
+        "--epoch-size", "2", "--epochs", "1", "--use-pallas-warp", "--device", "cpu",
+        "--checkpoints-dir", str(tmp_path / "ck"), "--name", "t"])
+    assert trainer.step == 2 and not trainer.val_with_gt
+    assert (kw.warp_fwd_launches, kw.warp_bwd_launches,
+            kw.warp_bwd_coords_launches) == launches
+    printed = capsys.readouterr().out
+    assert "photo_loss=" in printed and "best val photo_loss" in printed
+
+    run = Path(trainer.cfg.save_path)
+    events = [json.loads(x) for x in (run / "metrics.jsonl").read_text().splitlines()]
+    assert all(np.isfinite(e["loss"]) for e in events if e["event"] == "train_iter")
+    epoch = [e for e in events if e["event"] == "epoch"][0]
+    assert all(np.isfinite(epoch[k]) for k in ("photo_loss", "exp_loss", "smooth_loss"))
+    for name, fresh, model in ((CHECKPOINT_NAME, DispNetS(), trainer.model),
+                               (POSE_CHECKPOINT_NAME, PoseExpNet(), trainer.pose_model)):
+        assert (run / name).is_file()
+        fresh.load_state_dict(torch.load(run / name, weights_only=False)["state_dict"],
+                              strict=True)
+        for k, v in model.state_dict().items():
+            assert torch.equal(fresh.state_dict()[k], v), k
+    assert (run / BEST_NAME).is_file() and (run / POSE_BEST_NAME).is_file()
+
+
+def test_supervised_training_still_needs_gt_for_validation(tmp_path):
+    _packed_split(tmp_path / "data", 32, 64, with_depth=False)
+    cfg = TrainerConfig(data=str(tmp_path / "data"), batch_size=2)
+    with pytest.raises(RuntimeError, match="GT depth"):
+        Trainer(cfg, DispResNet(18), device="cpu").make_loaders()
