@@ -15,8 +15,14 @@ Phases; any failure exits non-zero:
        coordinate-only backward, at the main-path shape with coordinates from
        a real inverse-warp projection (both padding modes), random
        out-of-bounds coordinates, C=1 and a ragged (3, 37, 53);
+     - the depth-bin cross-entropy, forward and backward, at the main-path
+       shape (4, 128, 416, 64) in the model's NCHW-view layout and
+       contiguous, ragged (3, 37, 53) with K=48 and K=100, K=1, all masked
+       out, float and fractional masks, logits to ~+-4e4, labels at both
+       ends;
      CUDA-event timings of each kernel, its plain version and, for the
-     sampler, ``F.grid_sample`` (the library yardstick, never on the path);
+     sampler and the CE, ``F.grid_sample`` and ``F.cross_entropy`` (the
+     library yardsticks, never on the path);
   3. the main paths, each with every launch count set to 0 just before it
      and read just after:
      - supervised BerHu training of DispResNet-50 at 128x416, B=4, through
@@ -26,14 +32,20 @@ Phases; any failure exits non-zero:
        B=4, through ``cli.train.main`` on a packed split without depth, so
        validation runs without GT (8 forward and 8 coordinate-only warp
        launches a train step, 8 forward launches a validation batch);
+     - depth-as-classification training of DispResNet-50 (64 bins) at
+       128x416, B=4, through ``cli.train.main`` as the README runs it, with
+       validation against GT (which runs no CE) and ``Trainer.predict`` (1
+       forward and 1 backward CE launch a step); then the same with
+       ``--multiscale-classification`` for 3 steps (4 + 4 a step);
      - ``ops.warp.inverse_warp`` with its default ``diff_img=True`` and a
        backward into the image, depth and pose (the image+coordinate
        backward's path), against the plain sampler on the card;
-     the steady-state step time of both training paths and a profile of the
-     device time by kernel;
+     the steady-state step time of the three single-scale training paths
+     and a profile of the device time by kernel;
   4. cross-checks, one train step from identical weights on one batch, TF32
-     off: each path on the card with its kernels against the card with the
-     plain versions, and against the CPU with the plain versions;
+     off: each path (BerHu, classification single- and multi-scale,
+     self-supervised) on the card with its kernels against the card with
+     the plain versions, and against the CPU with the plain versions;
   5. a JSON line of the slice and cross-check numbers, a JSON line of kernel
      numbers, the card line, and as the last line
      ``{"ok": true, "device": {...}}``.
@@ -198,6 +210,151 @@ def kernel_phase(torch) -> dict:
                       "ms": t["bwd"], "plain_ms": t["bwd_plain"],
                       "bound_ms": bwd_bound, "bound_by": bwd_by,
                       "library_ms": None},
+    }
+
+
+def _ce_case(torch, rng, shape, K, layout="nchw", mask_kind="sparse", spread=1.0,
+             depth="uniform", device="cuda"):
+    """(logits, labels, mask) on the card. Logits unit-normal times
+    ``spread``, in the model's layout (the (B, H, W, K) view of an NCHW
+    tensor) or contiguous; labels ``DepthBins(K).depth_to_index`` of GT
+    depth over [0.5, 90] m (``depth='ends'``: only depths beyond both ends,
+    labels 0 and K-1); the mask ~10% sparse bool, all False, float 0/1, or
+    fractional float weights."""
+    from supervised_dispnet_tpu_torch.losses.classification import DepthBins
+
+    dev = torch.device(device)
+    if layout == "nchw":
+        B, H, W = shape
+        nchw = rng.standard_normal((B, K, H, W)).astype(np.float32) * spread
+        logits = torch.from_numpy(nchw).to(dev).permute(0, 2, 3, 1)
+    else:
+        logits = torch.from_numpy(
+            rng.standard_normal((*shape, K)).astype(np.float32) * spread).to(dev)
+    if depth == "ends":
+        gt = np.where(rng.uniform(size=shape) < 0.5, 0.5, 95.0)
+    else:
+        gt = rng.uniform(0.5, 90.0, shape)
+    labels = DepthBins(num_bins=K).depth_to_index(
+        torch.from_numpy(gt.astype(np.float32)).to(dev))
+    sparse = rng.uniform(size=shape) < 0.1
+    mask = {"sparse": sparse, "none": np.zeros(shape, bool),
+            "float": sparse.astype(np.float32),
+            "fractional": (sparse * rng.uniform(0.05, 1.0, shape)).astype(np.float32),
+            }[mask_kind]
+    return logits, labels, torch.from_numpy(mask).to(dev)
+
+
+def ce_phase(torch, device: str = "cuda") -> dict:
+    """The CE kernels against ``depth_classification_loss_plain`` on the
+    card, loss and logits-gradient (upstream gradient 0.7). Tolerances: loss
+    rtol 1e-5; gradient rtol 1e-5 with atol 1e-6 of its largest entry (an
+    entry is ~1/count, so a fixed atol would test nothing); they differ only
+    in summation order and in exp(x - max) / sum against exp(log-softmax)."""
+    from supervised_dispnet_tpu_torch.losses.classification import (
+        depth_classification_loss_plain)
+    from supervised_dispnet_tpu_torch.ops.cuda import classification as kc
+
+    rng = np.random.default_rng(7)
+    B, H, W = MAIN_SHAPE
+    main = f"main ({B},{H},{W},64)"
+
+    def case(*args, **kwargs):
+        return _ce_case(torch, rng, *args, device=device, **kwargs)
+
+    cases = {
+        f"{main} NCHW view": case(MAIN_SHAPE, 64),
+        f"{main} contiguous": case(MAIN_SHAPE, 64, layout="contiguous"),
+        "ragged (3,37,53,48) NCHW view": case((3, 37, 53), 48),
+        "ragged (3,37,53,100) contiguous": case((3, 37, 53), 100, layout="contiguous"),
+        "K=1 (3,37,53,1)": case((3, 37, 53), 1),
+        f"all masked out {main}": case(MAIN_SHAPE, 64, mask_kind="none"),
+        "float mask (3,37,53,64)": case((3, 37, 53), 64, mask_kind="float"),
+        "fractional mask (3,37,53,64)": case((3, 37, 53), 64, mask_kind="fractional"),
+        "logits N(0, 1e4), to ~+-4e4 (3,37,53,64)": case((3, 37, 53), 64, spread=1e4),
+        "labels 0 and K-1 only (3,37,53,64)": case((3, 37, 53), 64, depth="ends"),
+    }
+    g = torch.tensor(0.7, device=device)
+    err_fwd = err_bwd = 0.0
+    for name, (logits, labels, mask) in cases.items():
+        l_k = logits.detach().requires_grad_(True)
+        l_p = logits.detach().requires_grad_(True)
+        loss_k = kc.cross_entropy_cuda(l_k, labels, mask)
+        (d_k,) = torch.autograd.grad(loss_k, l_k, g)
+        loss_p = depth_classification_loss_plain(l_p, None, mask, labels=labels)
+        (d_p,) = torch.autograd.grad(loss_p, l_p, g)
+        stats = kc.ce_forward_stats(logits, labels, mask)
+        torch.cuda.synchronize()
+        scale = float(d_p.abs().max())
+        lk, lp = float(loss_k.detach()), float(loss_p.detach())
+        e_f, e_b = abs(lk - lp), float((d_k - d_p).abs().max())
+        err_fwd, err_bwd = max(err_fwd, e_f), max(err_bwd, e_b)
+        checks = {
+            "loss": torch.allclose(loss_k, loss_p, rtol=1e-5, atol=0.0),
+            "grad": torch.allclose(d_k, d_p, rtol=1e-5, atol=1e-6 * scale),
+            "grad layout": d_k.stride() == logits.stride(),
+            "count": math.isclose(float(stats[1]), float(mask.float().sum()), rel_tol=1e-6),
+            "finite": bool(torch.isfinite(loss_k) and torch.isfinite(d_k).all()),
+        }
+        lab = (int(labels.min()), int(labels.max()))
+        print(f"  ce {name}: loss kernel {lk:.7g} plain {lp:.7g} (abs err {e_f:.3g}); "
+              f"grad max abs err {e_b:.3g} of max|g| {scale:.3g}; count "
+              f"{float(stats[1]):.6g}; labels in [{lab[0]}, {lab[1]}]", flush=True)
+        bad = [k for k, ok in checks.items() if not ok]
+        if bad:
+            raise AssertionError(f"ce kernels disagree with the plain version on {name}: {bad}")
+    for name in ("K=1 (3,37,53,1)", f"all masked out {main}"):
+        logits, labels, mask = cases[name]
+        l_k = logits.detach().requires_grad_(True)
+        loss_k = kc.cross_entropy_cuda(l_k, labels, mask)
+        loss_k.backward()
+        if loss_k.item() != 0.0 or bool(l_k.grad.any()):
+            raise AssertionError(f"ce {name}: loss {loss_k.item()} and gradient not 0")
+
+    # timings at the main path's shape, in the model's layout
+    F = torch.nn.functional
+    logits, labels, mask = cases[f"{main} NCHW view"]
+    N, K = labels.numel(), logits.shape[-1]
+    l_req = logits.detach().requires_grad_(True)
+    plain_loss = depth_classification_loss_plain(l_req, None, mask, labels=labels)
+    stats = kc.ce_forward_stats(logits, labels, mask)
+    # the library: F.cross_entropy over the NCHW tensor with the masked-out
+    # pixels' labels set to ignore_index computes the same function
+    nchw = logits.permute(0, 3, 1, 2)
+    target = labels.masked_fill(~mask, -100).long()
+    lib_in = nchw.detach().requires_grad_(True)
+    lib_loss = F.cross_entropy(lib_in, target, ignore_index=-100)
+    if not torch.allclose(lib_loss, plain_loss, rtol=1e-5, atol=0.0):
+        raise AssertionError("F.cross_entropy(ignore_index) is not the same function")
+    t = {
+        "fwd": cuda_ms(torch, lambda: kc.ce_forward_stats(logits, labels, mask)),
+        "fwd_plain": cuda_ms(torch, lambda: depth_classification_loss_plain(
+            logits, None, mask, labels=labels)),
+        "fwd_lib": cuda_ms(torch, lambda: F.cross_entropy(nchw, target, ignore_index=-100)),
+        "bwd": cuda_ms(torch, lambda: kc.ce_backward(logits, labels, mask, stats, g)),
+        "bwd_plain": cuda_ms(torch, lambda: torch.autograd.grad(
+            plain_loss, l_req, retain_graph=True)),
+        "bwd_lib": cuda_ms(torch, lambda: torch.autograd.grad(
+            lib_loss, lib_in, retain_graph=True)),
+    }
+    # the least each must move (logits f32, labels i32, mask 1 byte read
+    # once; [loss, count] or dlogits written once) and do (~5 flops a logit
+    # forward: max, subtract, exp, add; ~8 backward)
+    in_bytes = 4 * N * K + 4 * N + N
+    bounds = {"ce_fwd": bound_ms(in_bytes + 8, 5 * N * K),
+              "ce_bwd": bound_ms(in_bytes + 8 + 4 + 4 * N * K, 8 * N * K)}
+    print(f"  ce {main}: fwd kernel_ms {t['fwd']:.5f} plain_ms {t['fwd_plain']:.5f} "
+          f"cross_entropy_ms {t['fwd_lib']:.5f}; bwd kernel_ms {t['bwd']:.5f} plain_ms "
+          f"{t['bwd_plain']:.5f} cross_entropy_ms {t['bwd_lib']:.5f}; bound_us "
+          + ", ".join(f"{k} {v[0] * 1e3:.3f}" for k, v in bounds.items()), flush=True)
+    src = "supervised_dispnet_tpu_torch/csrc/ce.cu"
+    return {
+        name: {"name": name, "route": "cuda", "source": src,
+               "replaces": f"{TPU_KERNEL}:{line}", "max_abs_err": err,
+               "ms": t[key], "plain_ms": t[f"{key}_plain"], "bound_ms": bounds[name][0],
+               "bound_by": bounds[name][1], "library_ms": t[f"{key}_lib"]}
+        for name, key, line, err in (("ce_fwd", "fwd", 52, err_fwd),
+                                     ("ce_bwd", "bwd", 80, err_bwd))
     }
 
 
@@ -520,6 +677,58 @@ def selfsup_phase(torch, tmp: Path, card: str, device: str = "cuda") -> dict:
             **steady_step(torch, trainer, "DispNetS + PoseExpNet selfsup", card)}
 
 
+def classification_phase(torch, tmp: Path, card: str, multiscale: bool = False,
+                         device: str = "cuda") -> dict:
+    """DispResNet-50 depth-as-classification training (64 bins) through the
+    CLI, as the README runs it: 1 forward and 1 backward CE launch a step
+    (4 + 4 with ``--multiscale-classification``), none in validation, which
+    decodes the logits and computes no CE. The single-scale run is timed and
+    profiled."""
+    from supervised_dispnet_tpu_torch.cli import train as train_cli
+    from supervised_dispnet_tpu_torch.data.packed import PackedValidationSet
+    from supervised_dispnet_tpu_torch.ops.cuda import classification as kc
+
+    B, H, W = MAIN_SHAPE
+    write_packed(tmp / "data", np.random.default_rng(8), H, W)
+    argv = [str(tmp / "data"), "--network", "disp_res_50", "--loss", "classification",
+            "-b", str(B), "--epoch-size", "3" if multiscale else "5", "--epochs", "1",
+            "--with-gt", "--use-pallas-losses", "--device", device,
+            "--checkpoints-dir", str(tmp / "ckpt"), "--name", "smoke"]
+    if multiscale:
+        argv.append("--multiscale-classification")
+    tee = _Tee(sys.stdout)
+    kc.ce_fwd_launches = kc.ce_bwd_launches = 0
+    with contextlib.redirect_stdout(tee):
+        trainer = train_cli.main(argv)
+    torch.cuda.synchronize()
+    launches = {"ce_fwd": kc.ce_fwd_launches, "ce_bwd": kc.ce_bwd_launches}
+    steps, per_step = trainer.step, 4 if multiscale else 1
+    tag = "multi-scale " if multiscale else ""
+    print(f"  classification {tag}slice: {steps} steps; launches {launches}", flush=True)
+    if steps < (3 if multiscale else 5) or any(v != per_step * steps for v in launches.values()):
+        raise AssertionError(f"expected {per_step} CE launches per step each way over "
+                             f"{steps} steps and none in validation, got {launches}")
+    text = tee.buf.getvalue()
+    if "abs_rel=" not in text or "rmse=" not in text:
+        raise AssertionError("validation printed no abs_rel / rmse")
+    losses, epoch = _read_run(trainer, steps)
+    val = {k: epoch[k] for k in ("abs_rel", "rmse", "a1")}
+    if not all(math.isfinite(v) for v in val.values()):
+        raise AssertionError(f"validation metrics not finite: {epoch}")
+
+    imgs = PackedValidationSet(tmp / "data", uint8=True).get_batch(range(B))["img"]
+    disp = trainer.predict(imgs.astype(np.float32) / 255.0)
+    if disp.shape != (B, H, W) or not ((disp >= 1 / 80) & (disp <= 1.0)).all():
+        raise AssertionError(f"predict: shape {disp.shape}, range "
+                             f"[{disp.min()}, {disp.max()}], not in [1/80, 1]")
+    print(f"  predict: disparity {disp.shape} in [{disp.min():.4f}, {disp.max():.4f}]",
+          flush=True)
+    out = {"launches": launches, "train_losses": losses, "val": val}
+    if not multiscale:
+        out.update(steady_step(torch, trainer, "DispResNet-50 classification (64 bins)", card))
+    return out
+
+
 def inverse_warp_phase(torch, device: str = "cuda") -> dict:
     """``ops.warp.inverse_warp`` as a user calls it, with its default
     ``diff_img=True``, at the main path's shape, and a backward into the
@@ -527,7 +736,8 @@ def inverse_warp_phase(torch, device: str = "cuda") -> dict:
     the same call with the plain sampler on the card (the geometry is the
     same code on the same device): warped rtol 1e-5 / atol 1e-6; depth and
     pose gradients rtol 1e-4 of the largest; the image gradient rtol 1e-4 /
-    atol 1e-5 (atomics)."""
+    atol 1e-5 (atomics). Then a profile of the call with its backward, for
+    the image+coordinate kernel's device time."""
     from supervised_dispnet_tpu_torch.ops import warp as wp
     from supervised_dispnet_tpu_torch.ops.cuda import warp as kw
     from supervised_dispnet_tpu_torch.ops.sampling import bilinear_sample
@@ -572,11 +782,13 @@ def inverse_warp_phase(torch, device: str = "cuda") -> dict:
     if not ok:
         raise AssertionError(f"inverse_warp with the kernels disagrees with the plain "
                              f"sampler: {errs}")
-    return {"launches": launches, "errors": errs}
+    return {"launches": launches, "errors": errs,
+            "profile": profile_steps(torch, run, top=4)}
 
 
 # the port's own kernels' names in a profile (csrc/*.cu)
-OWN_KERNELS = ("berhu_", "warp_forward_kernel", "warp_backward_kernel")
+OWN_KERNELS = ("berhu_", "warp_forward_kernel", "warp_backward_kernel", "ce_sum_kernel",
+               "ce_final_kernel", "ce_bwd_kernel")
 
 
 def profile_steps(torch, step, n: int = 5, top: int = 12) -> dict:
@@ -632,38 +844,58 @@ def _rel_l2(g, ref) -> float:
     return float((g - ref).norm() / ref.norm().clamp(min=1e-30))
 
 
-def _one_step(torch, model, batch: dict, device, plain: bool = False):
-    """One supervised BerHu train step, augmentation off; ``plain=True``
-    swaps the plain BerHu in for the kernel. Returns (loss, {name: grad}
-    on the CPU)."""
+def _one_step(torch, model, batch: dict, device, plain: bool = False, loss: str = "berhu"):
+    """One supervised train step (BerHu, or the 64-bin classification CE),
+    augmentation off; ``plain=True`` swaps the plain BerHu and CE in for the
+    kernels. Returns (loss, {name: grad} on the CPU)."""
     from supervised_dispnet_tpu_torch.data.augment import AugmentConfig
+    from supervised_dispnet_tpu_torch.losses.classification import (
+        depth_classification_loss_plain)
     from supervised_dispnet_tpu_torch.losses.supervised import berhu_loss_plain
     from supervised_dispnet_tpu_torch.training import train_step as ts
 
     no_aug = AugmentConfig(flip=False, scale_crop=False, color_jitter=False)
     opt = torch.optim.Adam(model.parameters(), lr=1e-4)
-    kernel_loss = ts.SUPERVISED_LOSSES["berhu"]
+    kernels = ts.SUPERVISED_LOSSES["berhu"], ts.CLASSIFICATION_CE
     if plain:
         ts.SUPERVISED_LOSSES["berhu"] = berhu_loss_plain
+        ts.CLASSIFICATION_CE = depth_classification_loss_plain
     try:
-        step = ts.make_supervised_train_step(model, opt, "berhu", aug=no_aug)
+        step = ts.make_supervised_train_step(model, opt, loss, aug=no_aug)
     finally:
-        ts.SUPERVISED_LOSSES["berhu"] = kernel_loss
+        ts.SUPERVISED_LOSSES["berhu"], ts.CLASSIFICATION_CE = kernels
     loss = step({k: torch.from_numpy(v).to(device) for k, v in batch.items()})["loss"]
     return float(loss), {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
 
 
-def cross_check(torch, device: str = "cuda") -> dict:
-    """One train step at the main-path shape from identical weights on one
-    batch, augmentation off, TF32 off for cuDNN and matmul. Loss rtol 1e-4;
-    gradients rtol 1e-3 (``_grads_agree``: the two sides sum in other
-    orders).
+# (label, DispResNet arguments, loss, the other side's device or None for
+# the card, its name) of each supervised cross-check
+SUPERVISED_CHECKS = (
+    ("DispResNet-50", {"encoder_depth": 50}, "berhu", None, "card plain"),
+    ("DispResNet-50", {"encoder_depth": 50}, "berhu", "cpu", "cpu"),
+    ("DispResNet-18", {"encoder_depth": 18}, "berhu", "cpu", "cpu"),
+    ("DispResNet-50 classification", {"encoder_depth": 50, "head": "classification"},
+     "classification", None, "card plain"),
+    ("DispResNet-50 classification", {"encoder_depth": 50, "head": "classification"},
+     "classification", "cpu", "cpu"),
+    ("DispResNet-50 multi-scale classification",
+     {"encoder_depth": 50, "head": "classification", "multiscale_classification": True},
+     "classification", None, "card plain"),
+)
 
-    - DispResNet-50 on the card, with the kernel against the plain BerHu:
-      the same convolutions on the same device, so every gradient must
-      agree and only the loss kernel differs.
-    - DispResNet-50 and -18, card (kernel) against CPU (plain): the loss and
-      the decoder's and heads' gradients. The encoder's gradients are
+
+def cross_check(torch, device: str = "cuda", checks=SUPERVISED_CHECKS) -> dict:
+    """One supervised train step at the main-path shape from identical
+    weights on one batch, augmentation off, TF32 off for cuDNN and matmul,
+    for each of ``checks``: BerHu and the 64-bin classification CE
+    (single- and multi-scale). Loss rtol 1e-4; gradients rtol 1e-3
+    (``_grads_agree``: the two sides sum in other orders).
+
+    - DispResNet-50 on the card, with the kernels against the plain BerHu
+      or CE: the same convolutions on the same device, so every gradient
+      must agree and only the loss kernels differ.
+    - Card (kernels) against CPU (plain): the loss and the decoder's and
+      heads' gradients. The encoder's gradients are
       compared by relative L2 norm, within 5e-2: in fp32 they are not fixed
       to 1e-3 by the inputs. A ReLU input within rounding of zero lands on
       the other side on the other device and takes its whole gradient with
@@ -683,13 +915,14 @@ def cross_check(torch, device: str = "cuda") -> dict:
                  "intrinsics": np.tile(np.eye(3, dtype=np.float32), (B, 1, 1)),
                  "depth": depth.astype(np.float16)}
         report = {}
-        for depth_n, plain_dev, other in ((50, device, "card plain"), (50, "cpu", "cpu"),
-                                          (18, "cpu", "cpu")):
-            base = DispResNet(depth_n, generator=torch.Generator().manual_seed(3))
-            l_a, g_a = _one_step(torch, copy.deepcopy(base).to(device), batch, device)
+        for label, kwargs, loss, plain_dev, other in checks:
+            plain_dev = plain_dev or device
+            base = DispResNet(**kwargs, generator=torch.Generator().manual_seed(3))
+            l_a, g_a = _one_step(torch, copy.deepcopy(base).to(device), batch, device,
+                                 loss=loss)
             l_b, g_b = _one_step(torch, copy.deepcopy(base).to(plain_dev), batch, plain_dev,
-                                 plain=True)
-            tag = f"DispResNet-{depth_n} card vs {other}"
+                                 plain=True, loss=loss)
+            tag = f"{label} card vs {other}"
             strict = [n for n in g_b if plain_dev == device or not n.startswith("encoder.")]
             worst = 0.0
             for n in strict:
@@ -834,17 +1067,21 @@ def main() -> int:
         regs = [ln.strip() for ln in log.splitlines() if "registers" in ln]
         print(f"  {name}: {'; '.join(regs) or 'already built'}", flush=True)
 
-    kernels = {**kernel_phase(torch), **warp_phase(torch)}
+    kernels = {**kernel_phase(torch), **warp_phase(torch), **ce_phase(torch)}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         sl = slice_phase(torch, Path(tmp) / "berhu", card)
         ss = selfsup_phase(torch, Path(tmp) / "selfsup", card)
+        cl = classification_phase(torch, Path(tmp) / "classification", card)
+        cm = classification_phase(torch, Path(tmp) / "multiscale", card, multiscale=True)
     iw = inverse_warp_phase(torch)
     xc = {**cross_check(torch), **selfsup_cross_check(torch)}
 
     # each kernel's launches on the path that runs it: BerHu on the
     # supervised path, the forward and coordinate-only warp on the
-    # self-supervised one, the image+coordinate warp on inverse_warp's
-    launches = {**sl["launches"], **ss["launches"], "warp_bwd": iw["launches"]["warp_bwd"]}
+    # self-supervised one, the image+coordinate warp on inverse_warp's, the
+    # CE on the (single-scale) classification path
+    launches = {**sl["launches"], **ss["launches"], "warp_bwd": iw["launches"]["warp_bwd"],
+                **cl["launches"]}
     for name, entry in kernels.items():
         entry["launches"] = launches[name]
     if not all(e["launches"] > 0 for e in kernels.values()):
@@ -853,7 +1090,9 @@ def main() -> int:
         name: {"step_ms": r["step_ms"], "card": card, "val": r["val"],
                "launches": r["launches"], "profile": r["profile"]}
         for name, r in (("supervised_berhu_dispresnet50", sl),
-                        ("selfsup_dispnet_posexpnet", ss))},
+                        ("selfsup_dispnet_posexpnet", ss),
+                        ("classification_dispresnet50", cl))},
+        "classification_multiscale": {"launches": cm["launches"], "val": cm["val"]},
         "inverse_warp": iw, "cross_check": xc}))
     print(json.dumps({"kernels": list(kernels.values())}))
     print(card)

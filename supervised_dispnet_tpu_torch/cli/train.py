@@ -1,8 +1,11 @@
 """Training CLI of the port, with the JAX CLI's flag spellings for the
-supervised and self-supervised paths (``supervised_dispnet_tpu/cli/train.py``):
+supervised, depth-as-classification and self-supervised paths
+(``supervised_dispnet_tpu/cli/train.py``):
 
   python -m supervised_dispnet_tpu_torch.cli.train /data/kitti_packed \\
       --network disp_res_50 --loss berhu -b 4 --lr 2e-4 --epochs 80 --with-gt
+  python -m supervised_dispnet_tpu_torch.cli.train /data/kitti_packed \\
+      --network disp_res_50 --loss classification -b 4 --with-gt
   python -m supervised_dispnet_tpu_torch.cli.train /data/kitti_packed \\
       --network dispnet --loss selfsup --sequence-length 3 -p 1.0 -m 0.2 -s 0.1 -b 4
 
@@ -19,8 +22,7 @@ from pathlib import Path
 
 # JAX CLI flags of features that later slices port (see ROADMAP.md)
 _LATER_FLAGS = frozenset((
-    "--ema-decay", "--num-bins", "--multiscale-classification",
-    "--max-depth", "--imagenet-normalization", "--hue", "--half-res-photo",
+    "--ema-decay", "--imagenet-normalization", "--hue", "--half-res-photo",
     "--stochastic-photo", "--bf16", "--remat",
     "--fused-upsample", "--qat", "--debug-nans", "--loader",
     "--steps-per-dispatch", "--accum-steps", "--spatial-shards",
@@ -42,7 +44,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--loss", default="berhu",
                    choices=["l1", "berhu", "scale_invariant", "classification",
                             "selfsup"],
-                   help="classification is not ported yet and raises")
+                   help="classification trains the bin-logit head (disp_res* only)")
     p.add_argument("--epochs", type=int, default=200)
     p.add_argument("--epoch-size", type=int, default=0,
                    help="limit batches per epoch (0 = full)")
@@ -74,14 +76,20 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-m", "--mask-loss-weight", type=float, default=0.2,
                    help="explainability weight; 0 builds the pose net without masks")
     p.add_argument("-s", "--smooth-loss-weight", type=float, default=0.1)
+    p.add_argument("--num-bins", type=int, default=64)
+    p.add_argument("--multiscale-classification", action="store_true",
+                   help="supervise bin logits at all 4 decoder scales "
+                        "(classification head)")
+    p.add_argument("--max-depth", type=float, default=80.0)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--img-height", type=int, default=128,
                    help="JPEG dump trees only: a packed split keeps its own size")
     p.add_argument("--img-width", type=int, default=416,
                    help="JPEG dump trees only: a packed split keeps its own size")
     p.add_argument("--use-pallas-losses", action="store_true",
-                   help="accepted for flag compatibility: BerHu on the card "
-                        "always runs the CUDA kernel")
+                   help="accepted for flag compatibility: BerHu and the "
+                        "classification CE on the card always run the CUDA "
+                        "kernels")
     p.add_argument("--use-pallas-warp", action="store_true",
                    help="accepted for flag compatibility: the warp on the "
                         "card always runs the CUDA kernels")
@@ -118,14 +126,18 @@ def main(argv: list[str] | None = None):
     cfg = TrainerConfig(
         data=args.data, save_path=str(save_path), loss=args.loss, epochs=args.epochs, epoch_size=args.epoch_size,
         batch_size=args.batch_size, lr=args.lr, beta1=args.momentum,
-        beta2=args.beta, weight_decay=args.weight_decay, seed=args.seed,
+        beta2=args.beta, weight_decay=args.weight_decay, max_depth=args.max_depth,
+        num_bins=args.num_bins, seed=args.seed,
         lr_schedule=args.lr_schedule, lr_warmup_steps=args.lr_warmup_steps,
         lr_decay_steps=args.lr_decay_steps, lr_decay_rate=args.lr_decay_rate,
         sequence_length=args.sequence_length, rotation_mode=args.rotation_mode,
         padding_mode=args.padding_mode, photo_loss_weight=args.photo_loss_weight,
         mask_loss_weight=args.mask_loss_weight,
         smooth_loss_weight=args.smooth_loss_weight)
-    model = get_disp_net(args.network, seed=args.seed, device=args.device)
+    head = "classification" if args.loss == "classification" else "disp"
+    model = get_disp_net(args.network, head=head, num_bins=args.num_bins,
+                         multiscale_classification=args.multiscale_classification,
+                         seed=args.seed, device=args.device)
     pose_model = None
     if args.loss == "selfsup":
         # a stream of its own, so the disp net's weights do not depend on it

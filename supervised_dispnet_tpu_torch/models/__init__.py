@@ -20,10 +20,13 @@ _RESNETS = {
 _LATER = ("disp_vgg_bn", "fcrn")
 
 
-def get_disp_net(name: str, head: str = "disp", fused_upsample: bool = False,
+def get_disp_net(name: str, head: str = "disp", num_bins: int = 64,
+                 multiscale_classification: bool = False, fused_upsample: bool = False,
                  seed: int = 0, device: str | torch.device = "cuda") -> torch.nn.Module:
     """Build a disparity network by its ``--network`` name, with weights
-    drawn from ``seed``, on ``device`` (the card unless asked otherwise)."""
+    drawn from ``seed``, on ``device`` (the card unless asked otherwise).
+    ``head='classification'`` (disp_res* only) gives the bin-logit head of
+    ``num_bins`` bins, at all four scales with ``multiscale_classification``."""
     key = name.lower()
     if key in _LATER:
         raise NotImplementedError(
@@ -34,13 +37,17 @@ def get_disp_net(name: str, head: str = "disp", fused_upsample: bool = False,
     dev = resolve_device(device)
     generator = torch.Generator().manual_seed(seed)
     if key == "dispnet":
-        if head != "disp" or fused_upsample:
+        if head != "disp":
+            raise ValueError(
+                f"classification head is only supported on disp_res*, got {name!r}")
+        if fused_upsample:
             raise NotImplementedError(
-                "DispNetS serves the disparity head, unfused, only; see ROADMAP.md")
+                "DispNetS serves the unfused decoder only; see ROADMAP.md")
         model = DispNetS(generator=generator)
     else:
-        model = DispResNet(_RESNETS[key], head=head, fused_upsample=fused_upsample,
-                           generator=generator)
+        model = DispResNet(_RESNETS[key], head=head, num_bins=num_bins,
+                           multiscale_classification=multiscale_classification,
+                           fused_upsample=fused_upsample, generator=generator)
     return model.to(dev)
 
 

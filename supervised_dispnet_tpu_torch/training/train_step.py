@@ -17,6 +17,8 @@ import torch
 
 from supervised_dispnet_tpu_torch.data.augment import (
     AugmentConfig, augment_batch, normalize_images)
+from supervised_dispnet_tpu_torch.losses.classification import (
+    DepthBins, depth_classification_loss, logits_to_depth, multiscale_classification_loss)
 from supervised_dispnet_tpu_torch.losses.metrics import compute_errors
 from supervised_dispnet_tpu_torch.losses.selfsup import (
     explainability_loss, photometric_reconstruction_loss, smooth_loss)
@@ -28,6 +30,9 @@ SUPERVISED_LOSSES: dict[str, Callable] = {
     "berhu": berhu_loss,
     "scale_invariant": scale_invariant_loss,
 }
+# the CE of loss_name="classification", read when a step is built: the CUDA
+# kernels on the card, the plain version on the CPU
+CLASSIFICATION_CE: Callable = depth_classification_loss
 
 
 def imgs_to_float(x: torch.Tensor) -> torch.Tensor:
@@ -58,6 +63,7 @@ def make_supervised_train_step(
     model: torch.nn.Module,
     optimizer: torch.optim.Optimizer,
     loss_name: str = "berhu",
+    bins: DepthBins | None = None,
     aug: AugmentConfig = AugmentConfig(),
     max_depth: float = 80.0,
     ema_decay: float = 0.0,
@@ -73,15 +79,28 @@ def make_supervised_train_step(
     (B, 3, 3), 'depth': (B, H, W) sparse GT, fp16 or fp32}, on the model's
     device. ``generator`` draws the augmentation (on the batch's device);
     ``draws`` gives its random numbers instead (``data/augment.py``).
-    BerHu on the card runs the CUDA kernel, on the CPU its plain version.
+    ``loss_name='classification'`` trains the bin-logit head against
+    ``bins.depth_to_index`` of the GT (``bins`` defaults to ``DepthBins()``):
+    the CE of the (B, H, W, K) logits, or the weighted CE of the four scales
+    when the model returns a list. BerHu and the CE on the card run the CUDA
+    kernels, on the CPU their plain versions.
     """
     _not_ported(ema_decay=ema_decay, accum_steps=accum_steps > 1,
                 fake_quant=fake_quant, mesh=mesh)
-    if loss_name not in SUPERVISED_LOSSES:
-        raise NotImplementedError(
-            f"supervised loss {loss_name!r} is not ported; ported: "
-            f"{sorted(SUPERVISED_LOSSES)} (classification: see ROADMAP.md)")
-    loss_fn = SUPERVISED_LOSSES[loss_name]
+    classification = loss_name == "classification"
+    if not classification and loss_name not in SUPERVISED_LOSSES:
+        raise ValueError(f"unknown supervised loss {loss_name!r}; choices: "
+                         f"{sorted(SUPERVISED_LOSSES)} and 'classification'")
+    bins = bins or DepthBins()
+    loss_fn = SUPERVISED_LOSSES.get(loss_name)
+    ce_fn = CLASSIFICATION_CE
+
+    def compute_loss(out, depth_gt: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        if not classification:
+            return multiscale_supervised_loss(disps_to_depths(out), depth_gt, mask, loss_fn)
+        if isinstance(out, list):
+            return multiscale_classification_loss(out, depth_gt, mask, bins, ce_fn=ce_fn)
+        return ce_fn(out, depth_gt, mask, bins)
 
     def step(batch: dict, generator: torch.Generator | None = None,
              draws: dict | None = None) -> dict[str, torch.Tensor]:
@@ -93,8 +112,7 @@ def make_supervised_train_step(
         mask = (depth_gt > 0) & (depth_gt < max_depth)
         model.train()
         optimizer.zero_grad(set_to_none=True)
-        depths = disps_to_depths(model(imgs[:, 0]))
-        loss = multiscale_supervised_loss(depths, depth_gt, mask, loss_fn)
+        loss = compute_loss(model(imgs[:, 0]), depth_gt, mask)
         loss.backward()
         optimizer.step()
         return {"loss": loss.detach()}
@@ -202,15 +220,18 @@ def make_selfsup_eval_step(
 
 
 def make_eval_step(model: torch.nn.Module, classification: bool = False,
-                   max_depth: float = 80.0, aug: AugmentConfig | None = None):
+                   bins: DepthBins | None = None, max_depth: float = 80.0,
+                   aug: AugmentConfig | None = None):
     """Validation step: forward + Eigen metrics against GT.
-    ``step(batch) -> dict of 0-d tensors on the device``.
+    ``step(batch) -> dict of 0-d tensors on the device``. With
+    ``classification``, the depth is the finest logits' soft decode
+    (``logits_to_depth`` over ``bins``, default ``DepthBins()``); no CE runs.
 
     batch: {'img': (B, H, W, 3), 'depth': (B, H, W)}. With ``aug`` set,
     images arrive raw (uint8 or [0, 1] float) and are normalised here;
     depth may arrive fp16 and is evaluated in fp32.
     """
-    _not_ported(classification=classification)
+    bins = bins or DepthBins()
 
     @torch.no_grad()
     def step(batch: dict) -> dict[str, torch.Tensor]:
@@ -218,7 +239,11 @@ def make_eval_step(model: torch.nn.Module, classification: bool = False,
         if aug is not None:
             img = normalize_images(img, aug.mean, aug.std)
         model.eval()
-        depth = 1.0 / model(img)[0][..., 0]
+        out = model(img)
+        if classification:
+            depth = logits_to_depth(out[0] if isinstance(out, list) else out, bins)
+        else:
+            depth = 1.0 / out[0][..., 0]
         gt = depth_to_float(batch["depth"])
         return compute_errors(gt, depth, (gt > 0) & (gt < max_depth))
 

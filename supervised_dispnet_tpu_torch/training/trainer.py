@@ -1,5 +1,6 @@
-"""Epoch-level training loop, the port of the supervised and
-self-supervised paths of ``supervised_dispnet_tpu/training/trainer.py``:
+"""Epoch-level training loop, the port of the supervised (regression and
+depth-as-classification) and self-supervised paths of
+``supervised_dispnet_tpu/training/trainer.py``:
 per-epoch train pass, validation against GT depth (or, without GT, with the
 self-supervised losses), CSV/JSONL logs, and checkpoints with a best-copy
 when the validation metric improves.
@@ -21,6 +22,7 @@ from supervised_dispnet_tpu_torch.data.augment import AugmentConfig, normalize_i
 from supervised_dispnet_tpu_torch.data.loader import BatchLoader
 from supervised_dispnet_tpu_torch.data.packed import (
     PackedSequenceDataset, PackedValidationSet, is_packed)
+from supervised_dispnet_tpu_torch.losses.classification import DepthBins, logits_to_depth
 from supervised_dispnet_tpu_torch.training.train_step import (
     SUPERVISED_LOSSES, make_eval_step, make_selfsup_eval_step, make_selfsup_train_step,
     make_supervised_train_step)
@@ -36,12 +38,12 @@ POSE_BEST_NAME = "exp_pose_model_best.pth.tar"
 
 @dataclasses.dataclass
 class TrainerConfig:
-    """The supervised and self-supervised fields of the JAX
+    """The supervised, classification and self-supervised fields of the JAX
     ``TrainerConfig``."""
 
     data: str = ""
     save_path: str = "checkpoints/exp"
-    loss: str = "berhu"  # l1 | berhu | scale_invariant | selfsup
+    loss: str = "berhu"  # l1 | berhu | scale_invariant | classification | selfsup
     epochs: int = 200
     epoch_size: int = 0  # 0 = full epoch
     batch_size: int = 4
@@ -50,6 +52,7 @@ class TrainerConfig:
     beta2: float = 0.999
     weight_decay: float = 0.0  # > 0: AdamW
     max_depth: float = 80.0
+    num_bins: int = 64  # depth bins of loss="classification"
     seed: int = 0
     # self-supervised (loss="selfsup")
     sequence_length: int = 3
@@ -111,7 +114,8 @@ class Trainer:
                  device: str | torch.device = "cuda"):
         self.device = resolve_device(device)
         self.selfsup = cfg.loss == "selfsup"
-        if not self.selfsup and cfg.loss not in SUPERVISED_LOSSES:
+        self.classification = cfg.loss == "classification"
+        if not (self.selfsup or self.classification) and cfg.loss not in SUPERVISED_LOSSES:
             raise NotImplementedError(
                 f"loss {cfg.loss!r} is not ported yet; see ROADMAP.md")
         if self.selfsup and pose_model is None:
@@ -128,7 +132,9 @@ class Trainer:
         self.generator = torch.Generator(device=self.device).manual_seed(cfg.seed)
         self.step = 0  # optimizer updates taken
         self.val_with_gt = True  # set by make_loaders
-        self.eval_step = make_eval_step(self.model, max_depth=cfg.max_depth, aug=self.aug)
+        self.bins = DepthBins(num_bins=cfg.num_bins, max_depth=cfg.max_depth)
+        self.eval_step = make_eval_step(self.model, classification=self.classification,
+                                        bins=self.bins, max_depth=cfg.max_depth, aug=self.aug)
         if self.selfsup:
             self._train_step = make_selfsup_train_step(
                 self.model, self.pose_model, self.optimizer,
@@ -142,7 +148,7 @@ class Trainer:
                 with_exp=cfg.with_exp_mask and cfg.mask_loss_weight > 0, aug=self.aug)
         else:
             self._train_step = make_supervised_train_step(
-                self.model, self.optimizer, cfg.loss, aug=self.aug,
+                self.model, self.optimizer, cfg.loss, bins=self.bins, aug=self.aug,
                 max_depth=cfg.max_depth)
 
     def to_device(self, np_batch: dict[str, np.ndarray]) -> dict[str, torch.Tensor]:
@@ -169,11 +175,17 @@ class Trainer:
 
     @torch.no_grad()
     def predict(self, images) -> np.ndarray:
-        """(B, H, W, 3) images in [0, 1] -> (B, H, W) finest-scale disparity."""
+        """(B, H, W, 3) images in [0, 1] -> (B, H, W) finest-scale disparity;
+        for the classification head, 1 / max(decoded depth, 1e-3)."""
         imgs = torch.as_tensor(np.asarray(images, np.float32), device=self.device)
         self.model.eval()
-        disp = self.model(normalize_images(imgs, self.aug.mean, self.aug.std))[0]
-        return disp[..., 0].cpu().numpy()
+        out = self.model(normalize_images(imgs, self.aug.mean, self.aug.std))
+        if self.classification:
+            depth = logits_to_depth(out[0] if isinstance(out, list) else out, self.bins)
+            disp = 1.0 / depth.clamp(min=1e-3)
+        else:
+            disp = out[0][..., 0]
+        return disp.cpu().numpy()
 
     # -- data ---------------------------------------------------------------
     def make_loaders(self) -> tuple[BatchLoader, BatchLoader]:

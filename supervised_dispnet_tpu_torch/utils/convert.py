@@ -43,10 +43,14 @@ def _put(sd: dict, prefix: str, leaf: dict, transpose: bool = False) -> None:
     sd[f"{prefix}.bias"] = _t(leaf["bias"])
 
 
-def dispresnet_from_jax(params: dict, batch_stats: dict,
-                        depth: int = 18) -> dict[str, torch.Tensor]:
-    """JAX DispResNet (disparity head) ``params`` / ``batch_stats`` -> the
-    port's ``DispResNet`` state dict."""
+def dispresnet_from_jax(params: dict, batch_stats: dict, depth: int = 18,
+                        head: str = "disp",
+                        multiscale_classification: bool = False) -> dict[str, torch.Tensor]:
+    """JAX DispResNet ``params`` / ``batch_stats`` -> the port's
+    ``DispResNet`` state dict. The classification head's ``bin_head`` goes to
+    ``predict_class.0`` and, multi-scale, ``bin_head{s}`` to
+    ``predict_class{s+1}.0``: the names of the JAX package's
+    ``DispResNetNameMap.bin_head`` / ``bin_head_scale``."""
     sd: dict[str, torch.Tensor] = {}
     ep, es = params["encoder"], batch_stats["encoder"]
 
@@ -75,8 +79,14 @@ def dispresnet_from_jax(params: dict, batch_stats: dict,
     for i in range(5):
         _put(sd, f"upconv{i}.0", params[f"upconv{i}_0"]["Conv_0"])
         _put(sd, f"iconv{i}.0", params[f"upconv{i}_1"]["Conv_0"])
-    for s in range(4):
-        _put(sd, f"predict_disp{s + 1}.0", params[f"disp_head{s}"]["Conv_0"])
+    if head == "classification":
+        _put(sd, "predict_class.0", params["bin_head"])
+        if multiscale_classification:
+            for s in range(1, 4):
+                _put(sd, f"predict_class{s + 1}.0", params[f"bin_head{s}"])
+    else:
+        for s in range(4):
+            _put(sd, f"predict_disp{s + 1}.0", params[f"disp_head{s}"]["Conv_0"])
     return sd
 
 

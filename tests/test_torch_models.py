@@ -139,7 +139,7 @@ def test_resize_bilinear_refuses_downsampling():
         resize_bilinear(torch.zeros(1, 8, 8, 1), 4, 8)
 
 
-@pytest.mark.parametrize("kw", [{"head": "classification"}, {"fused_upsample": True}])
+@pytest.mark.parametrize("kw", [{"fused_upsample": True}])
 def test_unported_variants_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         DispResNet(18, **kw)

@@ -82,7 +82,6 @@ def test_entry_points_need_the_card_unless_asked_for_the_cpu(tmp_path):
 @pytest.mark.parametrize("argv,err", [
     (["--bf16"], "--bf16"), (["--fused-upsample"], "--fused-upsample"),
     (["--network", "disp_vgg_bn"], "disp_vgg_bn"),
-    (["--loss", "classification"], "classification"),
     (["--loss", "selfsup", "--half-res-photo"], "--half-res-photo"),
 ])
 def test_unported_cli_choices_raise(tmp_path, argv, err):
