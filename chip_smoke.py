@@ -15,6 +15,13 @@ Phases; any failure exits non-zero:
        coordinate-only backward, at the main-path shape with coordinates from
        a real inverse-warp projection (both padding modes), random
        out-of-bounds coordinates, C=1 and a ragged (3, 37, 53);
+     - the grouped warp forward and coordinate-only backward (one launch for
+       up to 16 problems) on the self-supervised step's 8 problems (both
+       padding modes), a ragged group of mixed shapes and a group of 20,
+       each problem against the plain sampler and bit for bit against the
+       single-problem kernels; the groups they refuse (mixed devices,
+       float64, non-contiguous); their device time against 8 single launches
+       (profiler), and the single call's host time, part by part;
      - the depth-bin cross-entropy, forward and backward, at the main-path
        shape (4, 128, 416, 64) in the model's NCHW-view layout and
        contiguous, ragged (3, 37, 53) with K=48 and K=100, K=1, all masked
@@ -22,7 +29,8 @@ Phases; any failure exits non-zero:
        ends;
      CUDA-event timings of each kernel, its plain version and, for the
      sampler and the CE, ``F.grid_sample`` and ``F.cross_entropy`` (the
-     library yardsticks, never on the path);
+     library yardsticks, never on the path; 8 ``F.grid_sample`` calls for a
+     group of 8);
   3. the main paths, each with every launch count set to 0 just before it
      and read just after:
      - supervised BerHu training of DispResNet-50 at 128x416, B=4, through
@@ -30,8 +38,9 @@ Phases; any failure exits non-zero:
        against GT and ``Trainer.predict``;
      - self-supervised 3-frame training of DispNetS + PoseExpNet at 128x416,
        B=4, through ``cli.train.main`` on a packed split without depth, so
-       validation runs without GT (8 forward and 8 coordinate-only warp
-       launches a train step, 8 forward launches a validation batch);
+       validation runs without GT (1 grouped forward and 1 grouped
+       coordinate-only warp launch of 8 problems a train step, 1 grouped
+       forward launch of 8 a validation batch);
      - depth-as-classification training of DispResNet-50 (64 bins) at
        128x416, B=4, through ``cli.train.main`` as the README runs it, with
        validation against GT (which runs no CE) and ``Trainer.predict`` (1
@@ -525,6 +534,322 @@ def warp_phase(torch, device: str = "cuda") -> dict:
     }
 
 
+def _step_problems(torch, rng, device: str = "cuda", seed: int = 30) -> list:
+    """The self-supervised step's 8 sampling problems: 4 scales x 2 refs of
+    the main path (128x416, B=4, halved per scale), C=3, coordinates from a
+    projection at each scale; (img, x, y, g) each."""
+    B, H, W = MAIN_SHAPE
+    return [_warp_case(torch, rng, (B, H >> s, W >> s, 3), seed=seed + 2 * s + r,
+                       device=device)
+            for s in range(4) for r in range(2)]
+
+
+def _group_agrees(torch, kw, name: str, probs: list, mode: str) -> tuple[float, float]:
+    """One group through the grouped forward and coordinate-only backward,
+    held problem by problem against the plain sampler (out, dx, dy rtol 1e-5
+    / atol 1e-6) and against the single-problem kernels (bit for bit: the
+    same kernels, the same arithmetic); the same group through the autograd
+    Function (bit for bit with the direct calls); one launch a way per
+    ``MAX_PROBLEMS`` problems. Returns the largest errors (out, dx/dy)."""
+    imgs, xs, ys, gs = (list(t) for t in zip(*probs))
+    n = len(probs)
+    counters = ("warp_fwd_launches", "warp_bwd_coords_launches", "warp_fwd_problems",
+                "warp_bwd_coords_problems")
+    before = [getattr(kw, c) for c in counters]
+    outs = kw.warp_forward_many(imgs, xs, ys, mode)
+    grads = kw.warp_backward_coords_many(imgs, xs, ys, gs, mode)
+    counted = [getattr(kw, c) - b for c, b in zip(counters, before)]
+    want = [-(-n // kw.MAX_PROBLEMS)] * 2 + [n, n]
+    reqs = [t.clone().requires_grad_(True) for t in xs + ys]
+    outs_a = kw.bilinear_sample_many_cuda(imgs, reqs[:n], reqs[n:], mode)
+    grads_a = torch.autograd.grad(outs_a, reqs, gs)
+    err_f = err_c = 0.0
+    bad = [] if counted == want else [f"launches {counted} != {want}"]
+    for k, (img, x, y, g) in enumerate(probs):
+        out_p, (_, dx_p, dy_p) = _plain_warp_grads(torch, img, x, y, g, mode)
+        out_1 = kw.warp_forward(img, x, y, mode)
+        dx_1, dy_1 = kw.warp_backward_coords(img, x, y, g, mode)
+        (dx, dy), out = grads[k], outs[k]
+        torch.cuda.synchronize()
+        checks = {
+            "out": torch.allclose(out, out_p, rtol=1e-5, atol=1e-6),
+            "dx": torch.allclose(dx, dx_p, rtol=1e-5, atol=1e-6),
+            "dy": torch.allclose(dy, dy_p, rtol=1e-5, atol=1e-6),
+            "== single": (torch.equal(out, out_1) and torch.equal(dx, dx_1)
+                          and torch.equal(dy, dy_1)),
+            "== autograd": (torch.equal(out, outs_a[k]) and torch.equal(dx, grads_a[k])
+                            and torch.equal(dy, grads_a[n + k])),
+            "finite": bool(torch.isfinite(out).all() and torch.isfinite(dx).all()
+                           and torch.isfinite(dy).all()),
+        }
+        bad += [f"problem {k} {tuple(img.shape)}: {c}" for c, ok in checks.items() if not ok]
+        err_f = max(err_f, float((out - out_p).abs().max()))
+        err_c = max(err_c, float((dx - dx_p).abs().max()), float((dy - dy_p).abs().max()))
+    print(f"  warp group {name}: {n} problems, {counted[0]} + {counted[1]} launches; max "
+          f"abs err out {err_f:.3g}, dx/dy {err_c:.3g}; bit-equal to the single-problem "
+          f"kernels and to the autograd path: {not bad}", flush=True)
+    if bad:
+        raise AssertionError(f"grouped warp kernels disagree on {name}: {bad}")
+    return err_f, err_c
+
+
+def device_us(torch, fn, names, reps: int = 20) -> dict:
+    """Device time of the kernels named (by substring) in ``names`` over
+    ``reps`` calls of ``fn`` under ``torch.profiler``: {name: (us a launch,
+    launches a call)}."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for name in names:
+        ev = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA and name in e.key]
+        count = sum(e.count for e in ev)
+        out[name] = (sum(e.self_device_time_total for e in ev) / max(count, 1), count / reps)
+    return out
+
+
+def host_us(torch, fn, reps: int = 500) -> float:
+    """Host time of one call of ``fn`` (the enqueue, not the device's
+    work), by the host clock over ``reps`` calls after 50 of warm-up."""
+    for _ in range(50):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / reps * 1e6
+
+
+def warp_call_breakdown(torch, probs: list) -> dict:
+    """Where the host's time of a call goes (host clock; each step of the
+    wrapper timed alone). The single-problem forward at the finest scale:
+    the checks, the stream lookup, the output's allocation, the data
+    pointers, the ``ctypes`` call (which launches the kernel), the counter's
+    error check, the whole wrapper, the autograd Function around it, and
+    ``F.grid_sample`` beside it. The grouped forward over the step's 8
+    problems: the checks, the one allocation for all outputs, the pointers,
+    the plan and the packed table, the ``ctypes`` call, the whole wrapper,
+    the grouped backward's wrapper, and the autograd path."""
+    from supervised_dispnet_tpu_torch.ops.cuda import _build
+    from supervised_dispnet_tpu_torch.ops.cuda import warp as kw
+
+    F = torch.nn.functional
+    img, x, y, _ = probs[0]
+    index, shape = img.get_device(), kw._check_inputs(img, x, y)
+    out = torch.empty((*x.shape, 3), dtype=torch.float32, device=img.device)
+    lib, stream = kw._lib(), kw._stream(index)
+    ptrs = (img.data_ptr(), x.data_ptr(), y.data_ptr(), out.data_ptr())
+    xr, yr = x.clone().requires_grad_(True), y.clone().requires_grad_(True)
+    H, W = img.shape[1:3]
+    img_nchw = img.permute(0, 3, 1, 2).contiguous()
+    grid = torch.stack([x / (W - 1) * 2 - 1, y / (H - 1) * 2 - 1], dim=-1)
+    single = {
+        "checks": lambda: (kw._border("zeros"), kw._check_inputs(img, x, y)),
+        "stream": lambda: kw._stream(index),
+        "alloc": lambda: torch.empty((*x.shape, 3), dtype=torch.float32, device=img.device),
+        "pointers": lambda: (img.data_ptr(), x.data_ptr(), y.data_ptr(), out.data_ptr()),
+        "ctypes": lambda: lib.warp_forward(*ptrs, *shape, 0, index, stream),
+        "check": lambda: _build.check(lib, "warp", "warp_forward", 0),
+        "wrapper": lambda: kw.warp_forward(img, x, y),
+        "autograd_function": lambda: kw._WarpFunction.apply(img, xr, yr, "zeros", False),
+        "grid_sample": lambda: F.grid_sample(img_nchw, grid, mode="bilinear",
+                                             padding_mode="zeros", align_corners=True),
+    }
+    imgs, xs, ys, gs = (list(t) for t in zip(*probs))
+    xsr = [t.clone().requires_grad_(True) for t in xs]
+    ysr = [t.clone().requires_grad_(True) for t in ys]
+    shapes, _ = kw._check_group(imgs, xs, ys)
+    out_shapes = [(*a.shape, 3) for a in xs]
+    outs = kw._empty_many(out_shapes, img.device)
+    pointers = [(i.data_ptr(), a.data_ptr(), b.data_ptr(), 0, o.data_ptr(), 0, 0)
+                for i, a, b, o in zip(imgs, xs, ys, outs)]
+    ((table, n),) = kw._tables(shapes, pointers)
+    group = {
+        "checks": lambda: kw._check_group(imgs, xs, ys),
+        "alloc": lambda: kw._empty_many(out_shapes, img.device),
+        "pointers": lambda: [(i.data_ptr(), a.data_ptr(), b.data_ptr(), 0, o.data_ptr(), 0, 0)
+                             for i, a, b, o in zip(imgs, xs, ys, outs)],
+        "plan_and_table": lambda: list(kw._tables(shapes, pointers)),
+        "ctypes": lambda: lib.warp_forward_many(table, n, 0, index, stream),
+        "wrapper": lambda: kw.warp_forward_many(imgs, xs, ys),
+        "coords_wrapper": lambda: kw.warp_backward_coords_many(imgs, xs, ys, gs),
+        "autograd_fwd": lambda: kw.bilinear_sample_many_cuda(imgs, xsr, ysr),
+    }
+    us = {"single": {k: host_us(torch, f) for k, f in single.items()},
+          "group_8": {k: host_us(torch, f) for k, f in group.items()}}
+    us["single"]["autograd_overhead"] = (us["single"]["autograd_function"]
+                                         - us["single"]["wrapper"])
+    for name, parts in us.items():
+        print(f"  warp {name} forward call, host us: "
+              + ", ".join(f"{k} {v:.2f}" for k, v in parts.items()), flush=True)
+    return us
+
+
+def warp_group_phase(torch, device: str = "cuda") -> dict:
+    """The grouped warp kernels (``warp_forward_many``,
+    ``warp_backward_coords_many``) on three groups, each against the plain
+    sampler and the single-problem kernels (``_group_agrees``): the
+    self-supervised step's 8 problems at the main path's shape in both
+    padding modes; a ragged group of mixed shapes (C=1, a (3, 37, 53) ->
+    (19, 29) problem, a 5x7 image); 20 problems, above ``MAX_PROBLEMS``
+    (two launches a way); and what the entries refuse on the card (a CPU
+    tensor in a CUDA group, float64, a non-contiguous image, unequal
+    lists), with no launch counted. Then, over the step's 8 problems: CUDA-event
+    times of the grouped calls, of 8 single-problem calls, of 8 plain
+    samples and of 8 ``F.grid_sample`` calls (the yardstick), forward and
+    coordinate-only backward; the device time of the grouped launch and of
+    the single launches scale by scale (profiler); the group's bound; and
+    the single call's host breakdown."""
+    from supervised_dispnet_tpu_torch.ops.cuda import warp as kw
+    from supervised_dispnet_tpu_torch.ops.sampling import bilinear_sample
+
+    rng = np.random.default_rng(9)
+    B, H, W = MAIN_SHAPE
+    step = _step_problems(torch, rng, device)
+
+    def case(shape, coords="random", out_hw=None, seed=0):
+        return _warp_case(torch, rng, shape, coords, out_hw, seed=seed, device=device)
+
+    groups = {
+        f"selfsup step 4 scales x 2 refs ({B},{H},{W},3) zeros": (step, "zeros"),
+        f"selfsup step 4 scales x 2 refs ({B},{H},{W},3) border": (step, "border"),
+        "ragged mixed shapes border": ([
+            case((B, H, W, 3), "projection", seed=40), case((3, 37, 53, 3), out_hw=(19, 29)),
+            case((2, 64, 208, 1)), case((1, 5, 7, 3), out_hw=(3, 4)),
+            case((3, 37, 53, 3), "projection", seed=41)], "border"),
+        "20 problems, above MAX_PROBLEMS, zeros": ([
+            case((1 + k % 3, 9 + 4 * k, 13 + 7 * k, 1 if k % 5 == 0 else 3),
+                 out_hw=(5 + k, 6 + 3 * k)) for k in range(20)], "zeros"),
+    }
+    err_f = err_c = 0.0
+    for name, (probs, mode) in groups.items():
+        e_f, e_c = _group_agrees(torch, kw, name, probs, mode)
+        err_f, err_c = max(err_f, e_f), max(err_c, e_c)
+
+    # what the grouped entries refuse on the card, before any launch
+    img, x, y, g = step[0]
+    refusals = {
+        "a CPU x in a group on the card": (ValueError, lambda: kw.warp_forward_many(
+            [img, img], [x, x.cpu()], [y, y])),
+        "a float64 y": (TypeError, lambda: kw.warp_forward_many([img], [x], [y.double()])),
+        "a non-contiguous image": (ValueError, lambda: kw.warp_forward_many(
+            [img.transpose(1, 2)], [x], [y])),
+        "a float64 g": (TypeError, lambda: kw.warp_backward_coords_many(
+            [img], [x], [y], [g.double()])),
+        "fewer x than images": (ValueError, lambda: kw.warp_backward_coords_many(
+            [img, img], [x], [y, y], [g, g])),
+    }
+    counters = ("warp_fwd_launches", "warp_bwd_coords_launches", "warp_fwd_problems",
+                "warp_bwd_coords_problems")
+    before = [getattr(kw, c) for c in counters]
+    for name, (exc, call) in refusals.items():
+        try:
+            call()
+        except exc:
+            continue
+        raise AssertionError(f"the grouped warp entries took {name}")
+    if [getattr(kw, c) for c in counters] != before:
+        raise AssertionError("a refused group moved a warp counter")
+    print(f"  warp group refusals: {', '.join(refusals)}; no launch counted", flush=True)
+
+    # timings over the step's 8 problems (zeros, projection coordinates)
+    F = torch.nn.functional
+    imgs, xs, ys, gs = (list(t) for t in zip(*step))
+    xr = [t.clone().requires_grad_(True) for t in xs]
+    yr = [t.clone().requires_grad_(True) for t in ys]
+    plain = [bilinear_sample(i, a, b) for i, a, b in zip(imgs, xr, yr)]
+    # the library: F.grid_sample(align_corners=True) on each problem's
+    # normalised coordinates, NCHW
+    nchw = [i.permute(0, 3, 1, 2).contiguous() for i in imgs]
+    grids = [torch.stack([a / (i.shape[2] - 1) * 2 - 1, b / (i.shape[1] - 1) * 2 - 1], dim=-1)
+             .requires_grad_(True) for i, a, b in zip(imgs, xs, ys)]
+    lib = [F.grid_sample(i, gr, mode="bilinear", padding_mode="zeros", align_corners=True)
+           for i, gr in zip(nchw, grids)]
+    g_nchw = [g.permute(0, 3, 1, 2).contiguous() for g in gs]
+    for a, b in zip(lib, plain):  # atol: as in warp_phase
+        if not torch.allclose(a.permute(0, 2, 3, 1), b, rtol=1e-5, atol=1e-3):
+            raise AssertionError("F.grid_sample(align_corners=True) is not the same function")
+    t = {
+        "fwd": cuda_ms(torch, lambda: kw.warp_forward_many(imgs, xs, ys)),
+        "fwd_single": cuda_ms(torch, lambda: [kw.warp_forward(i, a, b)
+                                              for i, a, b in zip(imgs, xs, ys)]),
+        "fwd_plain": cuda_ms(torch, lambda: [bilinear_sample(i, a, b)
+                                             for i, a, b in zip(imgs, xs, ys)]),
+        "fwd_lib": cuda_ms(torch, lambda: [F.grid_sample(
+            i, gr, mode="bilinear", padding_mode="zeros", align_corners=True)
+            for i, gr in zip(nchw, grids)]),
+        "coords": cuda_ms(torch, lambda: kw.warp_backward_coords_many(imgs, xs, ys, gs)),
+        "coords_single": cuda_ms(torch, lambda: [kw.warp_backward_coords(i, a, b, g)
+                                                 for i, a, b, g in step]),
+        "coords_plain": cuda_ms(torch, lambda: torch.autograd.grad(
+            plain, xr + yr, gs, retain_graph=True)),
+        "coords_lib": cuda_ms(torch, lambda: torch.autograd.grad(
+            lib, grids, g_nchw, retain_graph=True)),
+    }
+    # the least the group must move (each problem's img, x, y (and g) read
+    # once, out (dx, dy) written once, f32) and do (as in warp_phase)
+    n_img = sum(i.numel() for i in imgs)
+    P = sum(a.numel() for a in xs)
+    bounds = {"warp_fwd_group": bound_ms(4 * (n_img + 2 * P + 3 * P), P * (20 + 9 * 3)),
+              "warp_bwd_coords_group": bound_ms(4 * (n_img + 2 * P + 3 * P + 2 * P),
+                                                P * (20 + 14 * 3))}
+    print(f"  warp group step (8 problems): fwd grouped_ms {t['fwd']:.5f} single_x8_ms "
+          f"{t['fwd_single']:.5f} plain_x8_ms {t['fwd_plain']:.5f} grid_sample_x8_ms "
+          f"{t['fwd_lib']:.5f}; coords bwd grouped_ms {t['coords']:.5f} single_x8_ms "
+          f"{t['coords_single']:.5f} plain_ms {t['coords_plain']:.5f} grid_sample_x8_ms "
+          f"{t['coords_lib']:.5f}; bound_us "
+          + ", ".join(f"{k} {v[0] * 1e3:.3f}" for k, v in bounds.items()), flush=True)
+
+    # device time: the single launches scale by scale, then the grouped ones
+    fwd_k, bwd_k = "warp_forward_group_kernel", "warp_backward_coords_group_kernel"
+    single = []
+    for s in range(4):
+        pair = step[2 * s:2 * s + 2]
+        d = device_us(torch, lambda: [(kw.warp_forward(i, a, b), kw.warp_backward_coords(
+            i, a, b, g)) for i, a, b, g in pair], (fwd_k, bwd_k))
+        single.append({"scale": s, "shape": list(pair[0][0].shape),
+                       "fwd_us": d[fwd_k][0], "coords_us": d[bwd_k][0]})
+    d = device_us(torch, lambda: (kw.warp_forward_many(imgs, xs, ys),
+                                  kw.warp_backward_coords_many(imgs, xs, ys, gs)),
+                  (fwd_k, bwd_k))
+    dev = {"fwd": d[fwd_k][0], "coords": d[bwd_k][0],
+           "fwd_single_sum": sum(2 * r["fwd_us"] for r in single),
+           "coords_single_sum": sum(2 * r["coords_us"] for r in single)}
+    print("  warp single launches, device us a launch by scale: " + "; ".join(
+        f"scale {r['scale']} {tuple(r['shape'])} fwd {r['fwd_us']:.2f} coords "
+        f"{r['coords_us']:.2f}" for r in single), flush=True)
+    for key, row, kernel in (("fwd", "warp_fwd_group", fwd_k),
+                             ("coords", "warp_bwd_coords_group", bwd_k)):
+        singles, bound_us = dev[f"{key}_single_sum"], bounds[row][0] * 1e3
+        print(f"  warp group {key}: device {dev[key]:.2f} us a launch, {d[kernel][1]:g} a "
+              f"call; the 8 single launches {singles:.2f} us (grouped below them: "
+              f"{dev[key] < singles}); bound {bound_us:.3f} us, {bound_us / dev[key]:.1%} "
+              f"of it", flush=True)
+    breakdown = warp_call_breakdown(torch, step)
+
+    src = "supervised_dispnet_tpu_torch/csrc/warp.cu"
+    return {
+        name: {"name": name, "route": "cuda", "source": src, "replaces": f"{TPU_WARP}:{line}",
+               "max_abs_err": err, "ms": t[key], "plain_ms": t[f"{key}_plain"],
+               "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+               "library_ms": t[f"{key}_lib"], "problems": len(step),
+               "device_us": dev[key], "single_x8_ms": t[f"{key}_single"],
+               "single_device_us_sum": dev[f"{key}_single_sum"],
+               "single_device_us_by_scale": [r[f"{key}_us"] for r in single],
+               **({"host_us": breakdown} if key == "fwd" else {})}
+        for name, key, line, err in (("warp_fwd_group", "fwd", 114, err_f),
+                                     ("warp_bwd_coords_group", "coords", 197, err_c))
+    }
+
+
 class _Tee(io.TextIOBase):
     """Writes to the real stdout and keeps a copy."""
 
@@ -645,20 +970,26 @@ def selfsup_phase(torch, tmp: Path, card: str, device: str = "cuda") -> dict:
             "-b", str(B), "--epoch-size", "5", "--epochs", "1", "--use-pallas-warp",
             "--device", device, "--checkpoints-dir", str(tmp / "ckpt"), "--name", "smoke"]
     tee = _Tee(sys.stdout)
-    kw.warp_fwd_launches = kw.warp_bwd_launches = kw.warp_bwd_coords_launches = 0
+    counters = {"warp_fwd": "warp_fwd_launches", "warp_bwd": "warp_bwd_launches",
+                "warp_bwd_coords": "warp_bwd_coords_launches",
+                "warp_fwd_problems": "warp_fwd_problems",
+                "warp_bwd_coords_problems": "warp_bwd_coords_problems"}
+    for attr in counters.values():
+        setattr(kw, attr, 0)
     with contextlib.redirect_stdout(tee):
         trainer = train_cli.main(argv)
     torch.cuda.synchronize()
-    launches = {"warp_fwd": kw.warp_fwd_launches, "warp_bwd": kw.warp_bwd_launches,
-                "warp_bwd_coords": kw.warp_bwd_coords_launches}
+    launches = {k: getattr(kw, attr) for k, attr in counters.items()}
     steps = trainer.step
     val_batches = len(trainer.make_loaders()[1])
     print(f"  selfsup slice: {steps} steps, {val_batches} validation batches; "
           f"launches {launches}", flush=True)
-    # 4 scales x 2 refs: a forward and a coordinate-only backward per step,
-    # a forward per validation batch, no image gradient
-    want = {"warp_fwd": 8 * (steps + val_batches), "warp_bwd": 0,
-            "warp_bwd_coords": 8 * steps}
+    # 4 scales x 2 refs in one grouped launch: a forward and a
+    # coordinate-only backward per step, a forward per validation batch, 8
+    # problems each; no image gradient
+    want = {"warp_fwd": steps + val_batches, "warp_bwd": 0, "warp_bwd_coords": steps,
+            "warp_fwd_problems": 8 * (steps + val_batches),
+            "warp_bwd_coords_problems": 8 * steps}
     if steps < 5 or trainer.val_with_gt or launches != want:
         raise AssertionError(f"expected launches {want} over {steps} steps and "
                              f"{val_batches} validation batches without GT, got "
@@ -787,7 +1118,7 @@ def inverse_warp_phase(torch, device: str = "cuda") -> dict:
 
 
 # the port's own kernels' names in a profile (csrc/*.cu)
-OWN_KERNELS = ("berhu_", "warp_forward_kernel", "warp_backward_kernel", "ce_sum_kernel",
+OWN_KERNELS = ("berhu_", "warp_forward_group_kernel", "warp_backward_", "ce_sum_kernel",
                "ce_final_kernel", "ce_bwd_kernel")
 
 
@@ -964,14 +1295,16 @@ def _one_selfsup_step(torch, disp, pose, batch: dict, device, plain: bool = Fals
     no_aug = AugmentConfig(flip=False, scale_crop=False, color_jitter=False)
     opt = torch.optim.Adam(list(disp.parameters()) + list(pose.parameters()), lr=1e-4)
     step = ts.make_selfsup_train_step(disp, pose, opt, aug=no_aug)
-    kernel_sample = wp.sample
+    kernel_sample, kernel_many = wp.sample, wp.sample_many
     if plain:
         wp.sample = lambda i, x, y, mode, diff_img: bilinear_sample(
             i if diff_img else i.detach(), x, y, mode)
+        wp.sample_many = lambda imgs, xs, ys, mode: [
+            bilinear_sample(i.detach(), x, y, mode) for i, x, y in zip(imgs, xs, ys)]
     try:
         out = step({k: torch.from_numpy(v).to(device) for k, v in batch.items()})
     finally:
-        wp.sample = kernel_sample
+        wp.sample, wp.sample_many = kernel_sample, kernel_many
     grads = {f"{tag}.{n}": p.grad.detach().cpu()
              for tag, net in (("disp", disp), ("pose", pose))
              for n, p in net.named_parameters()}
@@ -1067,7 +1400,8 @@ def main() -> int:
         regs = [ln.strip() for ln in log.splitlines() if "registers" in ln]
         print(f"  {name}: {'; '.join(regs) or 'already built'}", flush=True)
 
-    kernels = {**kernel_phase(torch), **warp_phase(torch), **ce_phase(torch)}
+    kernels = {**kernel_phase(torch), **warp_phase(torch), **warp_group_phase(torch),
+               **ce_phase(torch)}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         sl = slice_phase(torch, Path(tmp) / "berhu", card)
         ss = selfsup_phase(torch, Path(tmp) / "selfsup", card)
@@ -1078,10 +1412,13 @@ def main() -> int:
 
     # each kernel's launches on the path that runs it: BerHu on the
     # supervised path, the forward and coordinate-only warp on the
-    # self-supervised one, the image+coordinate warp on inverse_warp's, the
-    # CE on the (single-scale) classification path
+    # self-supervised one (its grouped launches: the single-problem entries
+    # launch the same two kernels and count on the same counters), the
+    # image+coordinate warp on inverse_warp's, the CE on the (single-scale)
+    # classification path
     launches = {**sl["launches"], **ss["launches"], "warp_bwd": iw["launches"]["warp_bwd"],
-                **cl["launches"]}
+                "warp_fwd_group": ss["launches"]["warp_fwd"],
+                "warp_bwd_coords_group": ss["launches"]["warp_bwd_coords"], **cl["launches"]}
     for name, entry in kernels.items():
         entry["launches"] = launches[name]
     if not all(e["launches"] > 0 for e in kernels.values()):

@@ -5,7 +5,9 @@ warp per reference frame and scale, at full resolution).
 
 The image pyramid is 2x2 average pooling, intrinsics are rescaled per scale,
 and each term is a mean over all pixels with out-of-view differences zeroed,
-as in the reference.
+as in the reference. The photometric loss samples every (scale, ref) warp
+with one ``ops.warp.sample_many`` call: on the card, one grouped kernel
+launch each way a step.
 """
 
 from __future__ import annotations
@@ -14,8 +16,8 @@ from collections.abc import Sequence
 
 import torch
 
+from supervised_dispnet_tpu_torch.ops import warp
 from supervised_dispnet_tpu_torch.ops.resize import downsample2x_avg
-from supervised_dispnet_tpu_torch.ops.warp import inverse_warp
 
 
 def _scale_intrinsics(intrinsics: torch.Tensor, factor: float) -> torch.Tensor:
@@ -46,9 +48,10 @@ def photometric_reconstruction_loss(
     tgt_img and each of ref_imgs: (B, H, W, 3); intrinsics (B, 3, 3) at full
     resolution; depths: per-scale target depths (B, H/2^s, W/2^s), finest
     first; explainability_masks: per-scale (B, h, w, R) or None; pose
-    (B, R, 6) target->ref. The refs are data (``diff_img=False``): their
-    warps form coordinate gradients only. Returns (loss, the finest scale's
-    warped refs).
+    (B, R, 6) target->ref. The refs are data: their warps form coordinate
+    gradients only. All (scale, ref) warps are sampled together
+    (``ops.warp.sample_many``), then the terms are summed scale-major,
+    ref-minor. Returns (loss, the finest scale's warped refs).
 
     ``half_res``, ``remat``, ``batch_refs`` and ``stochastic_stride > 1`` are
     the JAX package's other arms; they are not ported.
@@ -59,24 +62,34 @@ def photometric_reconstruction_loss(
         if value:
             raise NotImplementedError(
                 f"photometric loss {name} is not ported yet; see ROADMAP.md")
-    total = torch.zeros((), dtype=torch.float32, device=tgt_img.device)
-    warped_log: list[torch.Tensor] = []
+    tgts, imgs, xs, ys, valids = [], [], [], [], []
     tgt_s, refs_s = tgt_img, list(ref_imgs)
     for s, depth in enumerate(depths):
         if s > 0:
             tgt_s = downsample2x_avg(tgt_s)
             refs_s = [downsample2x_avg(r) for r in refs_s]
+        tgts.append(tgt_s)
         K_s = _scale_intrinsics(intrinsics, 1.0 / 2 ** s)
         for r, ref in enumerate(refs_s):
-            warped, valid = inverse_warp(ref, depth, pose[:, r], K_s,
-                                         rotation_mode=rotation_mode,
-                                         padding_mode=padding_mode, diff_img=False)
-            diff = (tgt_s - warped) * valid[..., None].to(tgt_s.dtype)
-            if explainability_masks is not None:
-                diff = diff * explainability_masks[s][..., r:r + 1]
-            total = total + diff.abs().mean()
-            if s == 0:
-                warped_log.append(warped)
+            x, y, valid = warp.warp_coords(depth, pose[:, r], K_s, ref.shape[1:3],
+                                           rotation_mode)
+            imgs.append(ref)
+            xs.append(x)
+            ys.append(y)
+            valids.append(valid)
+    warped_all = warp.sample_many(imgs, xs, ys, padding_mode)
+
+    total = torch.zeros((), dtype=torch.float32, device=tgt_img.device)
+    warped_log: list[torch.Tensor] = []
+    R = len(ref_imgs)
+    for k, (warped, valid) in enumerate(zip(warped_all, valids)):
+        s, r = divmod(k, R)
+        diff = (tgts[s] - warped) * valid[..., None].to(tgts[s].dtype)
+        if explainability_masks is not None:
+            diff = diff * explainability_masks[s][..., r:r + 1]
+        total = total + diff.abs().mean()
+        if s == 0:
+            warped_log.append(warped)
     return total, warped_log
 
 

@@ -11,16 +11,20 @@ Conventions, as in the JAX package:
   pixel coordinates and the sampler takes them as they are (no [-1, 1]
   round trip).
 
-The 3x3 geometry is plain float32 PyTorch. The sample (``sample``) goes
-through the CUDA kernels (``ops/cuda/warp.py``) for a CUDA tensor and
+The 3x3 geometry is plain float32 PyTorch (``warp_coords``). The sample
+(``sample``; ``sample_many`` for a group of them in one launch each way)
+goes through the CUDA kernels (``ops/cuda/warp.py``) for a CUDA tensor and
 through the plain version (``ops/sampling.py``) for a CPU tensor.
 """
 
 from __future__ import annotations
 
+from collections.abc import Sequence
+
 import torch
 
-from supervised_dispnet_tpu_torch.ops.cuda.warp import bilinear_sample_cuda
+from supervised_dispnet_tpu_torch.ops.cuda.warp import (
+    bilinear_sample_cuda, bilinear_sample_many_cuda)
 from supervised_dispnet_tpu_torch.ops.sampling import bilinear_sample
 
 
@@ -34,6 +38,24 @@ def sample(img: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
     if img.device.type == "cpu":
         return bilinear_sample(img if diff_img else img.detach(), x, y, padding_mode)
     raise ValueError(f"sample: no implementation for device {img.device}")
+
+
+def sample_many(imgs: Sequence[torch.Tensor], xs: Sequence[torch.Tensor],
+                ys: Sequence[torch.Tensor], padding_mode: str = "zeros") -> list[torch.Tensor]:
+    """Bilinear samples of imgs[i] (B, H, W, C) at pixel coordinates xs[i],
+    ys[i] (B, Ho, Wo), shapes free to differ between problems; the images
+    are data and take no gradient. CUDA tensors: one grouped kernel launch
+    each way for the whole group; CPU tensors: the plain version, problem by
+    problem."""
+    if not imgs:
+        raise ValueError("sample_many: no problem given")
+    device = imgs[0].device
+    if device.type == "cuda":
+        return bilinear_sample_many_cuda(imgs, xs, ys, padding_mode)
+    if device.type == "cpu":
+        return [bilinear_sample(img.detach(), x, y, padding_mode)
+                for img, x, y in zip(imgs, xs, ys, strict=True)]
+    raise ValueError(f"sample_many: no implementation for device {device}")
 
 
 def euler2mat(angle: torch.Tensor) -> torch.Tensor:
@@ -111,6 +133,20 @@ def cam2pixel(cam_coords: torch.Tensor, proj_rot: torch.Tensor, proj_tr: torch.T
     return x, y, valid
 
 
+def warp_coords(depth: torch.Tensor, pose: torch.Tensor, intrinsics: torch.Tensor,
+                bounds: tuple[int, int], rotation_mode: str = "euler",
+                tgt_intrinsics: torch.Tensor | None = None):
+    """The inverse warp's geometry: where each target pixel of depth
+    (B, Ht, Wt) lands in a source plane of ``bounds`` (H, W), moved by the
+    target->source pose (B, 6), with the source intrinsics (B, 3, 3)
+    (``tgt_intrinsics`` back-projects the target, default ``intrinsics``).
+    Returns x, y (B, Ht, Wt) pixel coordinates and valid (B, Ht, Wt) bool."""
+    K_t = intrinsics if tgt_intrinsics is None else tgt_intrinsics
+    cam_coords = pixel2cam(depth, torch.linalg.inv_ex(K_t).inverse)
+    proj = intrinsics @ pose_vec2mat(pose, rotation_mode)  # K @ [R | t]
+    return cam2pixel(cam_coords, proj[:, :, :3], proj[:, :, 3:], bounds=bounds)
+
+
 def inverse_warp(img: torch.Tensor, depth: torch.Tensor, pose: torch.Tensor,
                  intrinsics: torch.Tensor, rotation_mode: str = "euler",
                  padding_mode: str = "zeros", diff_img: bool = True,
@@ -121,9 +157,6 @@ def inverse_warp(img: torch.Tensor, depth: torch.Tensor, pose: torch.Tensor,
     target, default ``intrinsics``). ``diff_img=False``: img is data (the
     photometric loss), and the backward forms the coordinate gradients only.
     Returns (warped (B, Ht, Wt, C), valid (B, Ht, Wt) bool)."""
-    K_t = intrinsics if tgt_intrinsics is None else tgt_intrinsics
-    cam_coords = pixel2cam(depth, torch.linalg.inv_ex(K_t).inverse)
-    proj = intrinsics @ pose_vec2mat(pose, rotation_mode)  # K @ [R | t]
-    x, y, valid = cam2pixel(cam_coords, proj[:, :, :3], proj[:, :, 3:],
-                            bounds=(img.shape[1], img.shape[2]))
+    x, y, valid = warp_coords(depth, pose, intrinsics, (img.shape[1], img.shape[2]),
+                              rotation_mode, tgt_intrinsics)
     return sample(img, x, y, padding_mode, diff_img), valid

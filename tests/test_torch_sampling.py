@@ -156,3 +156,103 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         kw.bilinear_sample_cuda(*t[:3])
     assert (kw.warp_fwd_launches, kw.warp_bwd_launches,
             kw.warp_bwd_coords_launches) == launches
+
+
+# the grouped sampler (ops/warp.py::sample_many): (B, H, W, C, Ho, Wo) of a
+# mixed group, the 4 scales of a 2-ref pyramid, a C=1 and a ragged Ho != H
+GROUP = [(2, 32 >> s, 64 >> s, 3, 32 >> s, 64 >> s) for s in range(4) for _ in range(2)]
+GROUP += [(1, 32, 64, 1, 16, 40), (3, 37, 53, 3, 19, 29)]
+
+
+@pytest.mark.parametrize("padding_mode", ["zeros", "border"])
+def test_sample_many_on_the_cpu_equals_the_plain_sampler_per_problem(padding_mode):
+    """``sample_many`` on CPU tensors is ``bilinear_sample`` problem by
+    problem: samples and x, y gradients equal bit for bit; no gradient
+    reaches an image; no kernel counter moves."""
+    cases = [_case(B, H, W, C, Ho, Wo, 1.3, seed=20 + i)
+             for i, (B, H, W, C, Ho, Wo) in enumerate(GROUP)]
+    counters = (kw.warp_fwd_launches, kw.warp_bwd_coords_launches, kw.warp_fwd_problems,
+                kw.warp_bwd_coords_problems)
+    imgs = [torch.from_numpy(c[0]).requires_grad_(True) for c in cases]
+    xs = [torch.from_numpy(c[1]).requires_grad_(True) for c in cases]
+    ys = [torch.from_numpy(c[2]).requires_grad_(True) for c in cases]
+    outs = port_warp.sample_many(imgs, xs, ys, padding_mode)
+    sum((o * torch.from_numpy(c[3])).sum() for o, c in zip(outs, cases)).backward()
+    assert (kw.warp_fwd_launches, kw.warp_bwd_coords_launches, kw.warp_fwd_problems,
+            kw.warp_bwd_coords_problems) == counters
+    for k, (img, x, y, cot) in enumerate(cases):
+        tx, ty = (torch.from_numpy(a).requires_grad_(True) for a in (x, y))
+        ref = bilinear_sample(torch.from_numpy(img), tx, ty, padding_mode)
+        (ref * torch.from_numpy(cot)).sum().backward()
+        assert imgs[k].grad is None
+        assert torch.equal(outs[k].detach(), ref.detach()), k
+        assert torch.equal(xs[k].grad, tx.grad) and torch.equal(ys[k].grad, ty.grad), k
+
+
+def _problem_of_block(block_starts, block):
+    """``csrc/warp.cu::block_problem``: the last problem of a launch whose
+    block_start is at most ``block``."""
+    j = 0
+    for i in range(1, len(block_starts)):
+        j = i if block >= block_starts[i] else j
+    return j
+
+
+@pytest.mark.parametrize("sizes", [
+    [4 * (128 >> s) * (416 >> s) for s in range(4) for _ in range(2)],  # selfsup step
+    [2 * (32 >> s) * (64 >> s) for s in range(4) for _ in range(2)] + [640, 551 * 3],
+    [1, 7, 300, 256, 257, 5, 1000, 3, 3, 12, 900, 2, 511, 512, 40, 9, 4096],  # 17
+    [100] * 33,
+    [1],
+])
+def test_plan_groups_covers_every_pixel_once_largest_first(sizes):
+    """The host's plan for problems of ``sizes`` output pixels, read with
+    the kernels' block scan (``_problem_of_block``): every output pixel of
+    every problem falls in exactly one thread of one launch; each launch
+    holds at most ``MAX_PROBLEMS`` problems, the largest (in blocks) first;
+    a group above ``MAX_PROBLEMS`` splits (17 problems: 2 launches)."""
+    blocks = [-(-n // kw.THREADS) for n in sizes]
+    plan = kw.plan_groups(blocks)
+    assert len(plan) == -(-len(sizes) // kw.MAX_PROBLEMS)
+    order = [i for launch in plan for i, _ in launch]
+    assert sorted(order) == list(range(len(sizes)))
+    assert [blocks[i] for i in order] == sorted(blocks, reverse=True)
+    covered = [np.zeros(n, int) for n in sizes]
+    for launch in plan:
+        assert 1 <= len(launch) <= kw.MAX_PROBLEMS
+        starts = [start for _, start in launch]
+        for block in range(starts[-1] + blocks[launch[-1][0]]):
+            i, start = launch[_problem_of_block(starts, block)]
+            first = (block - start) * kw.THREADS
+            covered[i][first:first + kw.THREADS] += 1
+    assert all((c == 1).all() for c in covered)
+
+
+@pytest.mark.parametrize("entry", ["warp_forward_many", "warp_backward_coords_many",
+                                   "_WarpManyFunction"])
+def test_grouped_cuda_wrappers_refuse_cpu_tensors(entry):
+    """The grouped entries take CUDA tensors only and never fall back; a
+    refused group moves no launch or problem counter."""
+    cases = [_case(*GROUP[k], 1.3, seed=k) for k in (0, 8)]
+    imgs, xs, ys, gs = ([torch.from_numpy(c[j]) for c in cases] for j in range(4))
+    counters = (kw.warp_fwd_launches, kw.warp_bwd_coords_launches, kw.warp_fwd_problems,
+                kw.warp_bwd_coords_problems)
+    call = {
+        "warp_forward_many": lambda: kw.warp_forward_many(imgs, xs, ys),
+        "warp_backward_coords_many": lambda: kw.warp_backward_coords_many(imgs, xs, ys, gs),
+        "_WarpManyFunction": lambda: kw._WarpManyFunction.apply(
+            "zeros", *(t for p in zip(imgs, xs, ys) for t in p)),
+    }[entry]
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        call()
+    assert (kw.warp_fwd_launches, kw.warp_bwd_coords_launches, kw.warp_fwd_problems,
+            kw.warp_bwd_coords_problems) == counters
+
+
+def test_sample_many_refuses_other_devices_and_an_empty_group():
+    meta = torch.empty((1, 4, 5, 3), device="meta")
+    xy = torch.empty((1, 4, 5), device="meta")
+    with pytest.raises(ValueError, match="device meta"):
+        port_warp.sample_many([meta], [xy], [xy])
+    with pytest.raises(ValueError, match="no problem"):
+        port_warp.sample_many([], [], [])
