@@ -9,8 +9,15 @@ Phases; any failure exits non-zero:
      ``supervised_dispnet_tpu_torch/csrc`` (one ``nvcc`` per source, all
      started together; timed);
   2. kernels, each against its plain PyTorch version on the card:
-     - BerHu, forward and backward, at the main-path shape, ragged shapes, an
-       all-masked-out case and an all-quadratic case;
+     - BerHu, forward and backward: one problem at the main-path shape,
+       ragged shapes, an all-masked-out case and an all-quadratic case; then
+       groups (one launch each way for up to 8 predictions of one target)
+       against the per-scale plain loop: the supervised step's 4 scales,
+       ragged groups with bool, uint8, float and fractional masks, all masked
+       out, all quadratic, misaligned predictions, P = 8, a target above the
+       forward's register cache, P = 1 bit for bit against the single entry;
+       two runs bit-equal; the groups they refuse; the group's call and
+       device time against 4 single calls, and its host time part by part;
      - the bilinear warp sampler's forward, image+coordinate backward and
        coordinate-only backward, at the main-path shape with coordinates from
        a real inverse-warp projection (both padding modes), random
@@ -35,7 +42,8 @@ Phases; any failure exits non-zero:
      and read just after:
      - supervised BerHu training of DispResNet-50 at 128x416, B=4, through
        ``cli.train.main`` on a packed split written here, with validation
-       against GT and ``Trainer.predict``;
+       against GT and ``Trainer.predict`` (1 grouped forward and 1 grouped
+       backward BerHu launch of 4 problems a step);
      - self-supervised 3-frame training of DispNetS + PoseExpNet at 128x416,
        B=4, through ``cli.train.main`` on a packed split without depth, so
        validation runs without GT (1 grouped forward and 1 grouped
@@ -114,7 +122,7 @@ def bound_ms(n_bytes: float, n_flops: float) -> tuple[float, str]:
 
 
 def _berhu_case(torch, rng, shape, mask_kind="sparse", quadratic=False,
-                mask_dtype="bool"):
+                mask_dtype="bool", device="cuda"):
     gt = rng.uniform(1.0, 80.0, shape).astype(np.float32)
     if quadratic:  # every |d| in [0.5, 1] > c = 0.2 * max|d| <= 0.2
         sign = np.where(rng.uniform(size=shape) < 0.5, -1.0, 1.0)
@@ -131,30 +139,204 @@ def _berhu_case(torch, rng, shape, mask_kind="sparse", quadratic=False,
         mask = mask.astype(np.float32)
     elif mask_dtype == "fractional":  # float weights in (0, 1]
         mask = (mask * rng.uniform(0.05, 1.0, shape)).astype(np.float32)
-    dev = torch.device("cuda")
+    dev = torch.device(device)
     return (torch.from_numpy(pred).to(dev), torch.from_numpy(gt).to(dev),
             torch.from_numpy(mask).to(dev))
 
 
-def kernel_phase(torch) -> dict:
-    """BerHu kernel vs plain version. Tolerances: loss rtol 1e-5, gradient
-    rtol 1e-5 / atol 1e-7; they differ only in summation order."""
+def _berhu_group(torch, rng, shape, P, misaligned=False, device="cuda", **kwargs):
+    """(preds, gt, mask) of a group: P predictions of one target, the
+    target and mask of ``_berhu_case``; each prediction gt times its own
+    uniform(0.7, 1.4) draw (or, ``quadratic``, gt plus its own |d| in
+    [0.5, 1]). ``misaligned``: every prediction starts 4 bytes past a
+    16-byte boundary (the kernels' scalar path)."""
+    cases = [_berhu_case(torch, rng, shape, device=device, **kwargs) for _ in range(P)]
+    _, gt, mask = cases[0]
+    preds = [c[0] for c in cases]
+    if misaligned:
+        n = gt.numel()
+        preds = [torch.cat([p.new_zeros(1), p.reshape(-1)])[1:].view(shape) for p in preds]
+        assert all(p.data_ptr() % 16 and p.is_contiguous() and p.numel() == n for p in preds)
+    return preds, gt, mask
+
+
+STEP_WEIGHTS = (1.0, 0.5, 0.25, 0.125)  # multiscale_supervised_loss's
+
+
+def _plain_group(torch, preds, gt, mask, weights):
+    """The per-scale loop with the plain BerHu on the same device: the
+    weighted total, each problem's loss, and the total's gradients w.r.t.
+    the predictions and gt (upstream gradient 1)."""
+    from supervised_dispnet_tpu_torch.losses.supervised import berhu_loss_plain
+
+    ps = [p.detach().clone().requires_grad_(True) for p in preds]
+    g = gt.detach().clone().requires_grad_(True)
+    total = torch.zeros((), dtype=torch.float32, device=gt.device)
+    losses = []
+    for p, w in zip(ps, weights):
+        loss = berhu_loss_plain(p, g, mask)
+        losses.append(loss.detach())
+        total = total + w * loss
+    grads = torch.autograd.grad(total, ps + [g])
+    return total.detach(), losses, grads[:-1], grads[-1]
+
+
+def _berhu_group_agrees(torch, kl, name: str, preds, gt, mask, weights) -> tuple[float, float]:
+    """One group through ``berhu_loss_many_cuda`` (forward and backward,
+    gt taking a gradient) against the per-scale plain loop on the card:
+    total and each loss rtol 1e-5, each gradient (the predictions' and
+    gt's) rtol 1e-5 / atol 1e-7, the count exact (rel 1e-6 for a float
+    mask: its sum is taken in another order), c rel 1e-6; one launch each
+    way for the group; the forward and the backward run again give the same
+    bits. Returns the largest errors (loss, gradient)."""
+    P = len(preds)
+    counters = ("berhu_fwd_launches", "berhu_bwd_launches", "berhu_fwd_problems")
+    before = [getattr(kl, c) for c in counters]
+    ps = [p.detach().clone().requires_grad_(True) for p in preds]
+    g = gt.detach().clone().requires_grad_(True)
+    total = kl.berhu_loss_many_cuda(ps, g, mask, weights)
+    grads = torch.autograd.grad(total, ps + [g])
+    counted = [getattr(kl, c) - b for c, b in zip(counters, before)]
+    stats = kl.berhu_forward_many(preds, gt, mask, weights)
+    again = kl.berhu_forward_many(preds, gt, mask, weights)
+    one = torch.ones((), device=gt.device)
+    dp = kl.berhu_backward_many(preds, gt, mask, stats, weights, one)
+    dp_again = kl.berhu_backward_many(preds, gt, mask, again, weights, one)
+    total_p, losses_p, dps_p, dgt_p = _plain_group(torch, preds, gt, mask, weights)
+    torch.cuda.synchronize()
+    count = mask.to(torch.float32).sum()
+    rel_count = 1e-6 if mask.dtype == torch.float32 else 0.0
+    st = stats[:3 * P].view(P, 3)
+    m = mask.to(torch.float32)
+    c_plain = [float((0.2 * ((p - gt) * m).abs().max()).clamp(min=1e-6)) for p in preds]
+    checks = {
+        "launches": counted == [1, 1, P],
+        "total": torch.allclose(total, total_p, rtol=1e-5, atol=0.0),
+        "losses": all(torch.allclose(st[k, 0], losses_p[k], rtol=1e-5, atol=0.0)
+                      for k in range(P)),
+        "stats total": torch.allclose(stats[3 * P], total_p, rtol=1e-5, atol=0.0),
+        "count": all(math.isclose(float(st[k, 1]), float(count), rel_tol=rel_count)
+                     for k in range(P)),
+        "dpreds": all(torch.allclose(a, b, rtol=1e-5, atol=1e-7)
+                      for a, b in zip(grads[:-1], dps_p)),
+        "dgt": torch.allclose(grads[-1], dgt_p, rtol=1e-5, atol=1e-7),
+        "== direct backward": all(torch.equal(a, b) for a, b in zip(grads[:-1], dp)),
+        "two runs bit-equal": (torch.equal(stats, again)
+                               and all(torch.equal(a, b) for a, b in zip(dp, dp_again))),
+        "c": all(math.isclose(float(st[k, 2]), c, rel_tol=1e-6)
+                 for k, c in enumerate(c_plain)),
+        "finite": bool(torch.isfinite(stats).all()
+                       and all(torch.isfinite(d).all() for d in grads)),
+    }
+    total = total.detach()
+    e_l = max(abs(float(total) - float(total_p)),
+              max(abs(float(st[k, 0]) - float(losses_p[k])) for k in range(P)))
+    e_g = max(float((a - b).abs().max()) for a, b in zip(grads, list(dps_p) + [dgt_p]))
+    bad = [k for k, ok in checks.items() if not ok]
+    print(f"  berhu group {name}: P={P}, launches {counted[0]} + {counted[1]} ({counted[2]} "
+          f"problems); total kernel {float(total):.7g} plain {float(total_p):.7g}; max abs "
+          f"err loss {e_l:.3g}, grad {e_g:.3g}; count {float(st[0, 1]):.7g}, c "
+          f"{[round(float(c), 6) for c in st[:, 2]]}; two runs bit-equal "
+          f"{checks['two runs bit-equal']}", flush=True)
+    if bad:
+        raise AssertionError(f"grouped berhu kernels disagree on {name}: {bad}")
+    return e_l, e_g
+
+
+def berhu_call_breakdown(torch, preds, gt, mask) -> dict:
+    """Where the host's time of a call goes (host clock; each part of the
+    wrapper timed alone), over the step's group of 4: the checks, the one
+    allocation, the packed table, the stream lookup, the ``ctypes`` call
+    (which launches the kernel), the forward's whole wrapper, the backward's,
+    the autograd forward (one node) and forward + backward; the 4
+    single-problem calls (the parent's shape of the step) beside them; and
+    ``torch.autograd.grad`` of a one-element product, the autograd engine's
+    own cost on this host."""
+    from supervised_dispnet_tpu_torch.ops.cuda import losses as kl
+
+    w = STEP_WEIGHTS
+    P, n = len(preds), gt.numel()
+    m8, mask_is_float, index = kl._check_group(preds, gt, mask, w)
+    size = 3 * P + 1 + (2 * P + 1) * kl.SCRATCH_BLOCKS
+    buf = torch.empty(size, dtype=torch.float32, device=gt.device)
+    lib, stream, table = kl._lib(), kl._stream(index), kl._table(preds, (), w)
+    ptrs = (gt.data_ptr(), m8.data_ptr(), int(mask_is_float), n, 0.2, buf.data_ptr(),
+            buf.data_ptr() + 4 * (3 * P + 1), kl.SCRATCH_BLOCKS, index, stream)
+    stats = kl.berhu_forward_many(preds, gt, mask, w)
+    g = torch.ones((), device=gt.device)
+    req = [p.detach().clone().requires_grad_(True) for p in preds]
+    x = torch.ones(1, device=gt.device, requires_grad=True)
+
+    def autograd_step():
+        torch.autograd.grad(kl.berhu_loss_many_cuda(req, gt, mask, w), req)
+
+    def single_step():
+        total = torch.zeros((), device=gt.device)
+        for p, wk in zip(req, w):
+            total = total + wk * kl.berhu_loss_cuda(p, gt, mask)
+        torch.autograd.grad(total, req)
+
+    parts = {
+        "checks": lambda: kl._check_group(preds, gt, mask, w),
+        "alloc": lambda: torch.empty(size, dtype=torch.float32, device=gt.device),
+        "table": lambda: kl._table(preds, (), w),
+        "stream": lambda: kl._stream(index),
+        "ctypes": lambda: lib.berhu_forward_many(table, P, *ptrs),
+        "fwd_wrapper": lambda: kl.berhu_forward_many(preds, gt, mask, w),
+        "bwd_wrapper": lambda: kl.berhu_backward_many(preds, gt, mask, stats, w, g),
+        "autograd_fwd": lambda: kl.berhu_loss_many_cuda(req, gt, mask, w),
+        "autograd_fwd_bwd": autograd_step,
+        "single_x4_fwd_wrapper": lambda: [kl.berhu_forward_stats(p, gt, mask) for p in preds],
+        "single_x4_autograd_fwd_bwd": single_step,
+        "trivial_autograd_fwd_bwd": lambda: torch.autograd.grad((x * 2).sum(), x),
+    }
+    us = {k: host_us(torch, f) for k, f in parts.items()}
+    print("  berhu group of 4, host us a call: "
+          + ", ".join(f"{k} {v:.2f}" for k, v in us.items()), flush=True)
+    return us
+
+
+def kernel_phase(torch, device: str = "cuda") -> dict:
+    """The BerHu kernels against the plain version on the card.
+    Tolerances: loss rtol 1e-5, gradient rtol 1e-5 / atol 1e-7; they differ
+    only in summation order.
+
+    - One problem (the single-problem entries: the grouped kernels with P =
+      1 and weight 1) on seven cases: the main path's shape, ragged shapes
+      with bool, float and fractional masks, all masked out (stats [0, 0,
+      1e-6]), every |d| > c.
+    - Groups (``berhu_loss_many_cuda``) against the per-scale plain loop
+      (``_berhu_group_agrees``): the supervised step's group (P = 4 at the
+      main shape, weights (1, .5, .25, .125)); ragged (3, 37, 53) groups with
+      bool, float and fractional masks; all masked out; every |d| > c;
+      misaligned predictions (the scalar path); P = 8; a target too large
+      for the forward's register cache; P = 1 bit for bit against the
+      single entry; and what the grouped entries refuse on the card, with no
+      launch counted.
+    - Over the step's group: CUDA-event times of the grouped calls, of 4
+      single calls and of the plain loop; the device time of the grouped
+      launches and of 4 single ones (profiler); the bounds; the host time
+      part by part."""
     from supervised_dispnet_tpu_torch.losses.supervised import berhu_loss_plain
     from supervised_dispnet_tpu_torch.ops.cuda import losses as kl
 
     rng = np.random.default_rng(0)
+    ragged = (3, 37, 53)
+
+    def case(shape, **kwargs):
+        return _berhu_case(torch, rng, shape, device=device, **kwargs)
+
+    def group(shape, P, **kwargs):
+        return _berhu_group(torch, rng, shape, P, device=device, **kwargs)
+
     cases = {
-        "main (4,128,416)": _berhu_case(torch, rng, MAIN_SHAPE),
-        "ragged (3,37,53)": _berhu_case(torch, rng, (3, 37, 53)),
-        "ragged (3,37,53) float mask": _berhu_case(torch, rng, (3, 37, 53),
-                                                   mask_dtype="float32"),
-        "ragged (3,37,53) fractional mask": _berhu_case(torch, rng, (3, 37, 53),
-                                                        mask_dtype="fractional"),
-        "ragged (1,1,7)": _berhu_case(torch, rng, (1, 1, 7), mask_kind="all"),
-        "all masked out (4,128,416)": _berhu_case(torch, rng, MAIN_SHAPE,
-                                                  mask_kind="none"),
-        "every |d| > c (3,37,53)": _berhu_case(torch, rng, (3, 37, 53),
-                                               mask_kind="all", quadratic=True),
+        "main (4,128,416)": case(MAIN_SHAPE),
+        "ragged (3,37,53)": case(ragged),
+        "ragged (3,37,53) float mask": case(ragged, mask_dtype="float32"),
+        "ragged (3,37,53) fractional mask": case(ragged, mask_dtype="fractional"),
+        "ragged (1,1,7)": case((1, 1, 7), mask_kind="all"),
+        "all masked out (4,128,416)": case(MAIN_SHAPE, mask_kind="none"),
+        "every |d| > c (3,37,53)": case(ragged, mask_kind="all", quadratic=True),
     }
     err_fwd = err_bwd = 0.0
     for name, (pred, gt, mask) in cases.items():
@@ -183,43 +365,163 @@ def kernel_phase(torch) -> dict:
                                  f"on {name}: loss {ok_loss}, grad {ok_grad}, "
                                  f"count {ok_count}")
     stats0 = kl.berhu_forward_stats(*cases["all masked out (4,128,416)"]).tolist()
-    if stats0[:2] != [0.0, 0.0] or not math.isclose(stats0[2], 1e-6, rel_tol=1e-6):
+    if stats0 != [0.0, 0.0, float(np.float32(1e-6))]:
         raise AssertionError(f"all-masked-out stats {stats0} != [0, 0, 1e-6]")
 
+    # groups against the per-scale plain loop
+    w4 = STEP_WEIGHTS
+    step = group(MAIN_SHAPE, 4)
+    tiny = group((1, 1, 7), 2, mask_kind="all")
+    groups = {
+        f"step group {MAIN_SHAPE}": (step, w4),
+        "ragged (3,37,53) bool mask": (group(ragged, 4), w4),
+        "ragged (3,37,53) float mask": (group(ragged, 4, mask_dtype="float32"), w4),
+        "ragged (3,37,53) fractional mask": (group(ragged, 3, mask_dtype="fractional"),
+                                             (0.7, 1.3, 0.2)),
+        f"all masked out {MAIN_SHAPE}": (group(MAIN_SHAPE, 4, mask_kind="none"), w4),
+        "every |d| > c (3,37,53)": (group(ragged, 4, mask_kind="all", quadratic=True), w4),
+        "misaligned predictions (3,37,53)": (group(ragged, 4, misaligned=True), w4),
+        "ragged (1,1,7) uint8 mask": ((*tiny[:2], tiny[2].to(torch.uint8)), (1.0, 0.5)),
+        f"P=8 {MAIN_SHAPE}": (group(MAIN_SHAPE, 8), tuple(0.5 ** k for k in range(8))),
+        "above the register cache (8,256,832) P=2": (group((8, 256, 832), 2), (1.0, 0.5)),
+        "P=1 (4,128,416)": ((step[0][:1], *step[1:]), (1.0,)),
+    }
+    err_gf = err_gb = 0.0
+    for name, ((preds, gt, mask), weights) in groups.items():
+        e_l, e_g = _berhu_group_agrees(torch, kl, name, preds, gt, mask, weights)
+        err_gf, err_gb = max(err_gf, e_l), max(err_gb, e_g)
+    preds, gt, mask = groups[f"all masked out {MAIN_SHAPE}"][0]
+    zero = kl.berhu_forward_many(preds, gt, mask, w4).tolist()
+    if zero != [0.0, 0.0, float(np.float32(1e-6))] * 4 + [0.0]:
+        raise AssertionError(f"all-masked-out group stats {zero} != [0, 0, 1e-6] x 4, 0")
+    pred, gt, mask = step[0][0], step[1], step[2]
+    one = torch.ones((), device=gt.device)
+    s1, s_many = kl.berhu_forward_stats(pred, gt, mask), kl.berhu_forward_many([pred], gt, mask,
+                                                                             (1.0,))
+    if not (torch.equal(s1, s_many[:3]) and torch.equal(s_many[3], s1[0]) and torch.equal(
+            kl.berhu_backward(pred, gt, mask, s1, one),
+            kl.berhu_backward_many([pred], gt, mask, s_many, (1.0,), one)[0])):
+        raise AssertionError("the P=1 group is not bit-equal to the single-problem entry")
+    print("  berhu P=1 group: bit-equal to the single-problem entries (stats, total = loss, "
+          "gradient)", flush=True)
+
+    # what the grouped entries refuse on the card, before any launch
+    preds, gt, mask = step
+    stats1 = kl.berhu_forward_many(preds[:1], gt, mask, (1.0,))
+    refusals = {
+        "a CPU prediction": (ValueError, lambda: kl.berhu_forward_many(
+            [preds[0], preds[1].cpu()], gt, mask, (1.0, 0.5))),
+        "a float64 prediction": (TypeError, lambda: kl.berhu_forward_many(
+            [preds[0].double()], gt, mask, (1.0,))),
+        "a non-contiguous prediction": (ValueError, lambda: kl.berhu_forward_many(
+            [preds[0].transpose(1, 2).contiguous().transpose(1, 2)], gt, mask, (1.0,))),
+        "a shape mismatch": (ValueError, lambda: kl.berhu_forward_many(
+            [preds[0][:, 1:]], gt, mask, (1.0,))),
+        "9 predictions": (ValueError, lambda: kl.berhu_forward_many(
+            preds * 2 + preds[:1], gt, mask, (1.0,) * 9)),
+        "fewer weights than predictions": (ValueError, lambda: kl.berhu_backward_many(
+            preds, gt, mask, stats1, (1.0,), one)),
+        "an int32 mask": (TypeError, lambda: kl.berhu_forward_many(
+            preds, gt, mask.to(torch.int32), w4)),
+    }
+    counters = ("berhu_fwd_launches", "berhu_bwd_launches", "berhu_fwd_problems")
+    before = [getattr(kl, c) for c in counters]
+    for name, (exc, call) in refusals.items():
+        try:
+            call()
+        except exc:
+            continue
+        raise AssertionError(f"the grouped berhu entries took {name}")
+    if [getattr(kl, c) for c in counters] != before:
+        raise AssertionError("a refused group moved a berhu counter")
+    print(f"  berhu group refusals: {', '.join(refusals)}; no launch counted", flush=True)
+
+    # timings: one problem at the main path's shape, then the step's group
     pred, gt, mask = cases["main (4,128,416)"]
     n = pred.numel()
     p_req = pred.clone().requires_grad_(True)
     plain_loss = berhu_loss_plain(p_req, gt, mask)
     stats = kl.berhu_forward_stats(pred, gt, mask)
-    g = torch.ones((), device=pred.device)
+    preds, sgt, smask = step
+    sstats = kl.berhu_forward_many(preds, sgt, smask, w4)
+    singles = [kl.berhu_forward_stats(p, sgt, smask) for p in preds]
+
+    def plain_total(ps):
+        total = torch.zeros((), device=sgt.device)
+        for p, wk in zip(ps, w4):
+            total = total + wk * berhu_loss_plain(p, sgt, smask)
+        return total
+
+    reqs = [p.clone().requires_grad_(True) for p in preds]
+    total_p = plain_total(reqs)
     t = {
         "fwd": cuda_ms(torch, lambda: kl.berhu_forward_stats(pred, gt, mask)),
         "fwd_plain": cuda_ms(torch, lambda: berhu_loss_plain(pred, gt, mask)),
-        "bwd": cuda_ms(torch, lambda: kl.berhu_backward(pred, gt, mask, stats, g)),
+        "bwd": cuda_ms(torch, lambda: kl.berhu_backward(pred, gt, mask, stats, one)),
         "bwd_plain": cuda_ms(torch, lambda: torch.autograd.grad(
             plain_loss, p_req, retain_graph=True)),
+        "fwd_group": cuda_ms(torch, lambda: kl.berhu_forward_many(preds, sgt, smask, w4)),
+        "fwd_group_single_x4": cuda_ms(torch, lambda: [kl.berhu_forward_stats(p, sgt, smask)
+                                                       for p in preds]),
+        "fwd_group_plain": cuda_ms(torch, lambda: plain_total(preds)),
+        "bwd_group": cuda_ms(torch, lambda: kl.berhu_backward_many(
+            preds, sgt, smask, sstats, w4, one)),
+        "bwd_group_single_x4": cuda_ms(torch, lambda: [kl.berhu_backward(p, sgt, smask, s, one)
+                                                       for p, s in zip(preds, singles)]),
+        "bwd_group_plain": cuda_ms(torch, lambda: torch.autograd.grad(
+            total_p, reqs, retain_graph=True)),
     }
-    # the least the function must move: each input read once, each output
-    # written once (pred, gt f32; mask 1 byte); ~10 flops/px fwd, ~6 bwd
-    fwd_bound, fwd_by = bound_ms(9 * n + 12, 10 * n)
-    bwd_bound, bwd_by = bound_ms(9 * n + 12 + 4 * n, 6 * n)
-    print(f"  berhu main path: fwd kernel_ms {t['fwd']:.5f} plain_ms "
-          f"{t['fwd_plain']:.5f} bound_us {fwd_bound * 1e3:.3f}; bwd kernel_ms "
-          f"{t['bwd']:.5f} plain_ms {t['bwd_plain']:.5f} bound_us "
-          f"{bwd_bound * 1e3:.3f}; library_ms null", flush=True)
+    # the least each must move (preds, gt f32 and the 1-byte mask read once,
+    # the stats or the gradients written once) and do (~10 flops an element
+    # and problem forward, ~6 backward)
+    P = len(preds)
+    bounds = {
+        "berhu_fwd": bound_ms(9 * n + 12, 10 * n),
+        "berhu_bwd": bound_ms(9 * n + 12 + 4 + 4 * n, 6 * n),
+        "berhu_fwd_group": bound_ms((4 * P + 5) * n + 4 * (3 * P + 1), 10 * P * n),
+        "berhu_bwd_group": bound_ms((4 * P + 5) * n + 4 * (3 * P + 1) + 4 + 4 * P * n,
+                                    6 * P * n),
+    }
+    fwd_k, bwd_k = "berhu_forward_group_kernel", "berhu_backward_group_kernel"
+    d_group = device_us(torch, lambda: (kl.berhu_forward_many(preds, sgt, smask, w4),
+                                        kl.berhu_backward_many(preds, sgt, smask, sstats, w4,
+                                                               one)), (fwd_k, bwd_k))
+    d_single = device_us(torch, lambda: [(kl.berhu_forward_stats(p, sgt, smask),
+                                          kl.berhu_backward(p, sgt, smask, s, one))
+                                         for p, s in zip(preds, singles)], (fwd_k, bwd_k))
+    dev = {"fwd_group": d_group[fwd_k][0], "bwd_group": d_group[bwd_k][0],
+           "fwd": d_single[fwd_k][0], "bwd": d_single[bwd_k][0]}
+    print(f"  berhu main path, one problem: fwd kernel_ms {t['fwd']:.5f} plain_ms "
+          f"{t['fwd_plain']:.5f} device_us {dev['fwd']:.2f} bound_us "
+          f"{bounds['berhu_fwd'][0] * 1e3:.3f}; bwd kernel_ms {t['bwd']:.5f} plain_ms "
+          f"{t['bwd_plain']:.5f} device_us {dev['bwd']:.2f} bound_us "
+          f"{bounds['berhu_bwd'][0] * 1e3:.3f}; library_ms null", flush=True)
+    for key in ("fwd", "bwd"):
+        row, k = f"berhu_{key}_group", f"{key}_group"
+        bound_us = bounds[row][0] * 1e3
+        print(f"  berhu step group (4 problems): {key} grouped_ms {t[k]:.5f} single_x4_ms "
+              f"{t[k + '_single_x4']:.5f} plain_loop_ms {t[k + '_plain']:.5f}; device "
+              f"{dev[k]:.2f} us a launch, {d_group[fwd_k if key == 'fwd' else bwd_k][1]:g} a "
+              f"call; 4 single launches {4 * dev[key]:.2f} us; bound {bound_us:.3f} us, "
+              f"{bound_us / dev[k]:.1%} of it", flush=True)
+    breakdown = berhu_call_breakdown(torch, preds, sgt, smask)
+
     src = "supervised_dispnet_tpu_torch/csrc/berhu.cu"
-    return {
-        "berhu_fwd": {"name": "berhu_fwd", "route": "cuda", "source": src,
-                      "replaces": f"{TPU_KERNEL}:203", "max_abs_err": err_fwd,
-                      "ms": t["fwd"], "plain_ms": t["fwd_plain"],
-                      "bound_ms": fwd_bound, "bound_by": fwd_by,
-                      "library_ms": None},
-        "berhu_bwd": {"name": "berhu_bwd", "route": "cuda", "source": src,
-                      "replaces": f"{TPU_KERNEL}:238", "max_abs_err": err_bwd,
-                      "ms": t["bwd"], "plain_ms": t["bwd_plain"],
-                      "bound_ms": bwd_bound, "bound_by": bwd_by,
-                      "library_ms": None},
-    }
+    out = {}
+    for name, key, line, err in (("berhu_fwd", "fwd", 203, err_fwd),
+                                 ("berhu_bwd", "bwd", 238, err_bwd),
+                                 ("berhu_fwd_group", "fwd_group", 203, err_gf),
+                                 ("berhu_bwd_group", "bwd_group", 238, err_gb)):
+        out[name] = {"name": name, "route": "cuda", "source": src,
+                     "replaces": f"{TPU_KERNEL}:{line}", "max_abs_err": err,
+                     "ms": t[key], "plain_ms": t[f"{key}_plain"],
+                     "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+                     "library_ms": None, "device_us": dev[key]}
+        if key.endswith("group"):
+            out[name].update(problems=P, single_x4_ms=t[f"{key}_single_x4"],
+                             single_device_us_x4=4 * dev[key.split("_")[0]],
+                             **({"host_us": breakdown} if key == "fwd_group" else {}))
+    return out
 
 
 def _ce_case(torch, rng, shape, K, layout="nchw", mask_kind="sparse", spread=1.0,
@@ -893,16 +1195,20 @@ def slice_phase(torch, tmp: Path, card: str, device: str = "cuda") -> dict:
             "--use-pallas-losses", "--device", device,
             "--checkpoints-dir", str(tmp / "ckpt"), "--name", "smoke"]
     tee = _Tee(sys.stdout)
-    kl.berhu_fwd_launches = kl.berhu_bwd_launches = 0
+    kl.berhu_fwd_launches = kl.berhu_bwd_launches = kl.berhu_fwd_problems = 0
     with contextlib.redirect_stdout(tee):
         trainer = train_cli.main(argv)
     torch.cuda.synchronize()
-    launches = {"berhu_fwd": kl.berhu_fwd_launches, "berhu_bwd": kl.berhu_bwd_launches}
+    launches = {"berhu_fwd": kl.berhu_fwd_launches, "berhu_bwd": kl.berhu_bwd_launches,
+                "berhu_fwd_problems": kl.berhu_fwd_problems}
     steps = trainer.step
     print(f"  slice: {steps} steps; launches {launches}", flush=True)
-    if steps < 5 or any(v != 4 * steps for v in launches.values()):
-        raise AssertionError(f"expected 4 BerHu launches per step each way over "
-                             f"{steps} steps, got {launches}")
+    # the 4 scales of the multi-scale loss in one grouped launch each way a
+    # step; validation runs no BerHu
+    want = {"berhu_fwd": steps, "berhu_bwd": steps, "berhu_fwd_problems": 4 * steps}
+    if steps < 5 or launches != want:
+        raise AssertionError(f"expected launches {want} over {steps} steps (one grouped "
+                             f"BerHu launch of 4 problems each way a step), got {launches}")
     text = tee.buf.getvalue()
     if "abs_rel=" not in text or "rmse=" not in text:
         raise AssertionError("validation printed no abs_rel / rmse")
@@ -919,9 +1225,15 @@ def slice_phase(torch, tmp: Path, card: str, device: str = "cuda") -> dict:
     print(f"  predict: disparity {disp.shape} in [{disp.min():.4f}, "
           f"{disp.max():.4f}]", flush=True)
 
+    timed = steady_step(torch, trainer, "DispResNet-50 BerHu", card)
+    berhu = {r["kernel"]: r["calls_per_step"] for r in timed["profile"]["own_kernels"]
+             if "berhu_" in r["kernel"]}
+    if sorted(berhu.values()) != [1.0, 1.0] or not all(
+            any(k in name for name in berhu) for k in OWN_KERNELS[:2]):
+        raise AssertionError(f"the step's profile shows BerHu kernels {berhu}, not one "
+                             f"grouped forward and one grouped backward a step")
     return {"launches": launches, "train_losses": losses,
-            "val": {k: epoch[k] for k in ("abs_rel", "rmse", "a1")},
-            **steady_step(torch, trainer, "DispResNet-50 BerHu", card)}
+            "val": {k: epoch[k] for k in ("abs_rel", "rmse", "a1")}, **timed}
 
 
 def steady_step(torch, trainer, label: str, card: str, reps: int = 20) -> dict:
@@ -1118,7 +1430,8 @@ def inverse_warp_phase(torch, device: str = "cuda") -> dict:
 
 
 # the port's own kernels' names in a profile (csrc/*.cu)
-OWN_KERNELS = ("berhu_", "warp_forward_group_kernel", "warp_backward_", "ce_sum_kernel",
+OWN_KERNELS = ("berhu_forward_group_kernel", "berhu_backward_group_kernel",
+               "warp_forward_group_kernel", "warp_backward_", "ce_sum_kernel",
                "ce_final_kernel", "ce_bwd_kernel")
 
 
@@ -1411,12 +1724,15 @@ def main() -> int:
     xc = {**cross_check(torch), **selfsup_cross_check(torch)}
 
     # each kernel's launches on the path that runs it: BerHu on the
-    # supervised path, the forward and coordinate-only warp on the
+    # supervised path (its grouped launches: the single-problem entries
+    # launch the same two kernels and count on the same counters), the forward and coordinate-only warp on the
     # self-supervised one (its grouped launches: the single-problem entries
     # launch the same two kernels and count on the same counters), the
     # image+coordinate warp on inverse_warp's, the CE on the (single-scale)
     # classification path
-    launches = {**sl["launches"], **ss["launches"], "warp_bwd": iw["launches"]["warp_bwd"],
+    launches = {**sl["launches"], "berhu_fwd_group": sl["launches"]["berhu_fwd"],
+                "berhu_bwd_group": sl["launches"]["berhu_bwd"],
+                **ss["launches"], "warp_bwd": iw["launches"]["warp_bwd"],
                 "warp_fwd_group": ss["launches"]["warp_fwd"],
                 "warp_bwd_coords_group": ss["launches"]["warp_bwd_coords"], **cl["launches"]}
     for name, entry in kernels.items():

@@ -12,7 +12,7 @@ from collections.abc import Callable, Sequence
 
 import torch
 
-from supervised_dispnet_tpu_torch.ops.cuda.losses import berhu_loss_cuda
+from supervised_dispnet_tpu_torch.ops.cuda.losses import berhu_loss_cuda, berhu_loss_many_cuda
 from supervised_dispnet_tpu_torch.ops.resize import interpolate_bilinear
 
 
@@ -65,6 +65,16 @@ def scale_invariant_loss(pred: torch.Tensor, gt: torch.Tensor, mask: torch.Tenso
     return (d * d).sum() / count - lam * (d.sum() / count) ** 2
 
 
+def grouped_route(loss_fn: Callable, device_type: str) -> Callable | None:
+    """The grouped entry ``(preds, gt, mask, weights) -> weighted total``
+    that computes the multi-scale ``loss_fn`` on a device of
+    ``device_type`` in one launch each way, or None for the per-scale loop.
+    BerHu is the only supervised loss with a kernel, so only ``berhu_loss``
+    on CUDA tensors is grouped; every other loss, the plain BerHu included,
+    and the CPU run the loop."""
+    return berhu_loss_many_cuda if loss_fn is berhu_loss and device_type == "cuda" else None
+
+
 def multiscale_supervised_loss(
     preds: Sequence[torch.Tensor],
     gt: torch.Tensor,
@@ -74,10 +84,16 @@ def multiscale_supervised_loss(
 ) -> torch.Tensor:
     """Weighted sum of ``loss_fn`` over the scales; each (B, h, w) prediction
     is bilinearly upsampled to GT resolution first (the sparse GT cannot be
-    downsampled without corrupting it)."""
+    downsampled without corrupting it). On the card, BerHu takes all scales
+    in one grouped call (``grouped_route``)."""
     H, W = gt.shape[1], gt.shape[2]
+    pairs = list(zip(preds, weights))
+    grouped = grouped_route(loss_fn, gt.device.type)
+    if grouped is not None and pairs:
+        ups = [interpolate_bilinear(pred[:, None], H, W)[:, 0].contiguous() for pred, _ in pairs]
+        return grouped(ups, gt, mask, [w for _, w in pairs])
     total = torch.zeros((), dtype=torch.float32, device=gt.device)
-    for pred, w in zip(preds, weights):
+    for pred, w in pairs:
         pred_up = interpolate_bilinear(pred[:, None], H, W)[:, 0].contiguous()
         total = total + w * loss_fn(pred_up, gt, mask)
     return total
