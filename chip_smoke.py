@@ -33,7 +33,11 @@ Phases; any failure exits non-zero:
        shape (4, 128, 416, 64) in the model's NCHW-view layout and
        contiguous, ragged (3, 37, 53) with K=48 and K=100, K=1, all masked
        out, float and fractional masks, logits to ~+-4e4, labels at both
-       ends;
+       ends, -inf bins (bin 0 included), P not a multiple of 4, logits
+       offset by one float, K=100 and float masks on the 4-pixel path; each
+       on the path it must take, with the saved logsumexp against
+       ``torch.logsumexp``, each kernel alone against its plain function
+       and a second run bit-equal; its device time, one launch a call;
      CUDA-event timings of each kernel, its plain version and, for the
      sampler and the CE, ``F.grid_sample`` and ``F.cross_entropy`` (the
      library yardsticks, never on the path; 8 ``F.grid_sample`` calls for a
@@ -58,7 +62,9 @@ Phases; any failure exits non-zero:
        backward into the image, depth and pose (the image+coordinate
        backward's path), against the plain sampler on the card;
      the steady-state step time of the three single-scale training paths
-     and a profile of the device time by kernel;
+     in full fp32 (the math mode the trainer sets), and with TF32 beside
+     it, and a profile of the device time by kernel (the classification
+     step's: one CE forward and one CE backward kernel);
   4. cross-checks, one train step from identical weights on one batch, TF32
      off: each path (BerHu, classification single- and multi-scale,
      self-supervised) on the card with its kernels against the card with
@@ -556,12 +562,44 @@ def _ce_case(torch, rng, shape, K, layout="nchw", mask_kind="sparse", spread=1.0
     return logits, labels, torch.from_numpy(mask).to(dev)
 
 
+def ce_bounds(N: int, K: int) -> dict:
+    """(bound ms, what bounds it) of the CE forward and backward over N
+    pixels of K bins: the least each must move (logits f32, labels i32, a
+    one-byte mask read once; the forward writes [loss, count] and the lse,
+    2 floats a pixel, which the backward reads with [loss, count] and g,
+    writing dlogits once) and do (~5 flops a logit forward: max, subtract,
+    exp, add; ~8 backward)."""
+    in_bytes = 4 * N * K + 4 * N + N
+    return {"ce_fwd": bound_ms(in_bytes + 8 * N + 8, 5 * N * K),
+            "ce_bwd": bound_ms(in_bytes + 8 * N + 8 + 4 + 4 * N * K, 8 * N * K)}
+
+
+def _minus_inf_bins(torch, rng, logits, labels) -> None:
+    """Set bins of ``logits`` to -inf in place: bin 0 in ~20% of the pixels,
+    the 20 leading bins in ~20%, every third bin in ~20%; never a pixel's
+    label bin, so the loss stays finite."""
+    shape, K = logits.shape[:-1], logits.shape[-1]
+    u = torch.from_numpy(rng.uniform(size=shape)).to(logits.device)[..., None]
+    k = torch.arange(K, device=logits.device)
+    kill = (((u < 0.2) & (k == 0)) | ((u >= 0.2) & (u < 0.4) & (k < 20))
+            | ((u >= 0.4) & (u < 0.6) & (k % 3 == 0)))
+    logits.masked_fill_(kill & (k != labels[..., None].long()), -math.inf)
+
+
 def ce_phase(torch, device: str = "cuda") -> dict:
     """The CE kernels against ``depth_classification_loss_plain`` on the
-    card, loss and logits-gradient (upstream gradient 0.7). Tolerances: loss
-    rtol 1e-5; gradient rtol 1e-5 with atol 1e-6 of its largest entry (an
-    entry is ~1/count, so a fixed atol would test nothing); they differ only
-    in summation order and in exp(x - max) / sum against exp(log-softmax)."""
+    card, loss and logits-gradient (upstream gradient 0.7), on both paths
+    (4 pixels a thread with 16-byte accesses, or one; each case states which
+    ``vector_path`` must pick). Tolerances: loss rtol 1e-5; gradient rtol
+    1e-5 with atol 1e-6 of its largest entry (an entry is ~1/count, so a
+    fixed atol would test nothing); they differ only in summation order and
+    in exp((x - lse) - lse_lo) against exp(log-softmax). Also per case: the
+    saved lse against ``torch.logsumexp`` (rtol 1e-6); each kernel alone
+    against its plain function (``ce_forward_plain``: loss rtol 1e-5, count
+    and lse rtol 1e-6; ``ce_backward_plain`` from the kernel's own lse: the
+    gradient's tolerance); a second run bit-equal, loss and gradient. K=1
+    and all masked out give exactly 0. Then timings and device time at the
+    main path's shape, each call one kernel launch and nothing else."""
     from supervised_dispnet_tpu_torch.losses.classification import (
         depth_classification_loss_plain)
     from supervised_dispnet_tpu_torch.ops.cuda import classification as kc
@@ -573,6 +611,7 @@ def ce_phase(torch, device: str = "cuda") -> dict:
     def case(*args, **kwargs):
         return _ce_case(torch, rng, *args, device=device, **kwargs)
 
+    # name: (logits, labels, mask); `vector` below names the cases the 4-pixel path takes
     cases = {
         f"{main} NCHW view": case(MAIN_SHAPE, 64),
         f"{main} contiguous": case(MAIN_SHAPE, 64, layout="contiguous"),
@@ -584,7 +623,26 @@ def ce_phase(torch, device: str = "cuda") -> dict:
         "fractional mask (3,37,53,64)": case((3, 37, 53), 64, mask_kind="fractional"),
         "logits N(0, 1e4), to ~+-4e4 (3,37,53,64)": case((3, 37, 53), 64, spread=1e4),
         "labels 0 and K-1 only (3,37,53,64)": case((3, 37, 53), 64, depth="ends"),
+        "-inf bins, bin 0 included (2,36,52,64) NCHW view": case((2, 36, 52), 64),
+        "-inf bins, bin 0 included (3,37,53,64) NCHW view": case((3, 37, 53), 64),
+        "P not a multiple of 4 (2,37,53,64) NCHW view": case((2, 37, 53), 64),
+        "K=100 (2,36,52,100) NCHW view": case((2, 36, 52), 100),
+        "float mask (2,36,52,64) NCHW view": case((2, 36, 52), 64, mask_kind="float"),
+        "fractional mask (2,36,52,64) NCHW view": case((2, 36, 52), 64,
+                                                       mask_kind="fractional"),
     }
+    for name, (logits, labels, _) in cases.items():
+        if name.startswith("-inf"):
+            _minus_inf_bins(torch, rng, logits, labels)
+    x, labels, mask = cases[f"{main} NCHW view"]
+    shifted = torch.empty(x.numel() + 1, device=device)[1:].view(B, 64, H, W)
+    shifted.copy_(x.permute(0, 3, 1, 2))
+    cases[f"logits offset by one float {main} NCHW view"] = (
+        shifted.permute(0, 2, 3, 1), labels, mask)
+    # the NCHW view with P a multiple of 4 at aligned addresses
+    vector = {f"{main} NCHW view", f"all masked out {main}",
+              *(name for name in cases if "(2,36,52" in name)}
+
     g = torch.tensor(0.7, device=device)
     err_fwd = err_bwd = 0.0
     for name, (logits, labels, mask) in cases.items():
@@ -592,25 +650,46 @@ def ce_phase(torch, device: str = "cuda") -> dict:
         l_p = logits.detach().requires_grad_(True)
         loss_k = kc.cross_entropy_cuda(l_k, labels, mask)
         (d_k,) = torch.autograd.grad(loss_k, l_k, g)
+        l_r = logits.detach().requires_grad_(True)
+        loss_r = kc.cross_entropy_cuda(l_r, labels, mask)
+        (d_r,) = torch.autograd.grad(loss_r, l_r, g)
         loss_p = depth_classification_loss_plain(l_p, None, mask, labels=labels)
         (d_p,) = torch.autograd.grad(loss_p, l_p, g)
-        stats = kc.ce_forward_stats(logits, labels, mask)
+        stats, lse = kc.ce_forward(logits, labels, mask)
+        stats_p, lse_p = kc.ce_forward_plain(logits, labels, mask)
+        d_s = kc.ce_backward(logits, labels, mask, lse, stats, g)
+        d_sp = kc.ce_backward_plain(logits, labels, mask, lse, stats, g)
         torch.cuda.synchronize()
         scale = float(d_p.abs().max())
         lk, lp = float(loss_k.detach()), float(loss_p.detach())
         e_f, e_b = abs(lk - lp), float((d_k - d_p).abs().max())
+        e_lse = float((lse[0] - torch.logsumexp(logits, -1)).abs().max())
         err_fwd, err_bwd = max(err_fwd, e_f), max(err_bwd, e_b)
+        path = kc.vector_path(logits, labels, mask)
+
+        def close(a, b, rtol):
+            return torch.allclose(a, b, rtol=rtol, atol=0.0)
+
         checks = {
-            "loss": torch.allclose(loss_k, loss_p, rtol=1e-5, atol=0.0),
+            "loss": close(loss_k, loss_p, 1e-5),
             "grad": torch.allclose(d_k, d_p, rtol=1e-5, atol=1e-6 * scale),
             "grad layout": d_k.stride() == logits.stride(),
             "count": math.isclose(float(stats[1]), float(mask.float().sum()), rel_tol=1e-6),
             "finite": bool(torch.isfinite(loss_k) and torch.isfinite(d_k).all()),
+            "path": path == (name in vector),
+            "lse": close(lse[0], torch.logsumexp(logits, -1), 1e-6),
+            "forward kernel vs ce_forward_plain": (
+                close(stats[0], stats_p[0], 1e-5) and close(stats[1], stats_p[1], 1e-6)
+                and close(lse.double().sum(0), lse_p.double().sum(0), 1e-6)),
+            "backward kernel vs ce_backward_plain": torch.allclose(
+                d_s, d_sp, rtol=1e-5, atol=1e-6 * scale),
+            "two runs bit-equal": bool(torch.equal(loss_k, loss_r) and torch.equal(d_k, d_r)),
         }
         lab = (int(labels.min()), int(labels.max()))
-        print(f"  ce {name}: loss kernel {lk:.7g} plain {lp:.7g} (abs err {e_f:.3g}); "
-              f"grad max abs err {e_b:.3g} of max|g| {scale:.3g}; count "
-              f"{float(stats[1]):.6g}; labels in [{lab[0]}, {lab[1]}]", flush=True)
+        print(f"  ce {name} [{'vector' if path else 'scalar'} path]: loss kernel {lk:.7g} "
+              f"plain {lp:.7g} (abs err {e_f:.3g}); grad max abs err {e_b:.3g} of max|g| "
+              f"{scale:.3g}; lse max abs err {e_lse:.3g}; count {float(stats[1]):.6g}; "
+              f"labels in [{lab[0]}, {lab[1]}]", flush=True)
         bad = [k for k, ok in checks.items() if not ok]
         if bad:
             raise AssertionError(f"ce kernels disagree with the plain version on {name}: {bad}")
@@ -628,7 +707,7 @@ def ce_phase(torch, device: str = "cuda") -> dict:
     N, K = labels.numel(), logits.shape[-1]
     l_req = logits.detach().requires_grad_(True)
     plain_loss = depth_classification_loss_plain(l_req, None, mask, labels=labels)
-    stats = kc.ce_forward_stats(logits, labels, mask)
+    stats, lse = kc.ce_forward(logits, labels, mask)
     # the library: F.cross_entropy over the NCHW tensor with the masked-out
     # pixels' labels set to ignore_index computes the same function
     nchw = logits.permute(0, 3, 1, 2)
@@ -637,33 +716,51 @@ def ce_phase(torch, device: str = "cuda") -> dict:
     lib_loss = F.cross_entropy(lib_in, target, ignore_index=-100)
     if not torch.allclose(lib_loss, plain_loss, rtol=1e-5, atol=0.0):
         raise AssertionError("F.cross_entropy(ignore_index) is not the same function")
+
+    def fwd():
+        return kc.ce_forward(logits, labels, mask)
+
+    def bwd():
+        return kc.ce_backward(logits, labels, mask, lse, stats, g)
+
     t = {
-        "fwd": cuda_ms(torch, lambda: kc.ce_forward_stats(logits, labels, mask)),
+        "fwd": cuda_ms(torch, fwd),
         "fwd_plain": cuda_ms(torch, lambda: depth_classification_loss_plain(
             logits, None, mask, labels=labels)),
         "fwd_lib": cuda_ms(torch, lambda: F.cross_entropy(nchw, target, ignore_index=-100)),
-        "bwd": cuda_ms(torch, lambda: kc.ce_backward(logits, labels, mask, stats, g)),
+        "bwd": cuda_ms(torch, bwd),
         "bwd_plain": cuda_ms(torch, lambda: torch.autograd.grad(
             plain_loss, l_req, retain_graph=True)),
         "bwd_lib": cuda_ms(torch, lambda: torch.autograd.grad(
             lib_loss, lib_in, retain_graph=True)),
     }
-    # the least each must move (logits f32, labels i32, mask 1 byte read
-    # once; [loss, count] or dlogits written once) and do (~5 flops a logit
-    # forward: max, subtract, exp, add; ~8 backward)
-    in_bytes = 4 * N * K + 4 * N + N
-    bounds = {"ce_fwd": bound_ms(in_bytes + 8, 5 * N * K),
-              "ce_bwd": bound_ms(in_bytes + 8 + 4 + 4 * N * K, 8 * N * K)}
-    print(f"  ce {main}: fwd kernel_ms {t['fwd']:.5f} plain_ms {t['fwd_plain']:.5f} "
-          f"cross_entropy_ms {t['fwd_lib']:.5f}; bwd kernel_ms {t['bwd']:.5f} plain_ms "
-          f"{t['bwd_plain']:.5f} cross_entropy_ms {t['bwd_lib']:.5f}; bound_us "
-          + ", ".join(f"{k} {v[0] * 1e3:.3f}" for k, v in bounds.items()), flush=True)
+    # device time a launch; "" matches every device event of the call, so a
+    # memset or another kernel would show as more events than the kernel's,
+    # and a second launch as ~2 a call (the profiler may miss an event of
+    # the 100: 0.99 a call)
+    dev = {}
+    for key, fn, kernel in (("fwd", fwd, "ce_forward_kernel"),
+                            ("bwd", bwd, "ce_backward_kernel")):
+        got = device_us(torch, fn, [kernel, ""], reps=100)
+        if got[""][1] != got[kernel][1] or round(got[kernel][1]) != 1:
+            raise AssertionError(f"ce {key}: {got} device events a call, not one {kernel}")
+        dev[key] = got[kernel][0]
+    bounds = ce_bounds(N, K)
+    print(f"  ce {main}: fwd kernel_ms {t['fwd']:.5f} device_us {dev['fwd']:.2f} plain_ms "
+          f"{t['fwd_plain']:.5f} cross_entropy_ms {t['fwd_lib']:.5f}; bwd kernel_ms "
+          f"{t['bwd']:.5f} device_us {dev['bwd']:.2f} plain_ms {t['bwd_plain']:.5f} "
+          f"cross_entropy_ms {t['bwd_lib']:.5f}; bound_us "
+          + ", ".join(f"{k} {v[0] * 1e3:.3f}" for k, v in bounds.items())
+          + "; share of the bound "
+          + ", ".join(f"{k} {bounds[f'ce_{k}'][0] * 1e3 / dev[k]:.1%}" for k in dev),
+          flush=True)
     src = "supervised_dispnet_tpu_torch/csrc/ce.cu"
     return {
         name: {"name": name, "route": "cuda", "source": src,
                "replaces": f"{TPU_KERNEL}:{line}", "max_abs_err": err,
                "ms": t[key], "plain_ms": t[f"{key}_plain"], "bound_ms": bounds[name][0],
-               "bound_by": bounds[name][1], "library_ms": t[f"{key}_lib"]}
+               "bound_by": bounds[name][1], "library_ms": t[f"{key}_lib"],
+               "device_us": dev[key]}
         for name, key, line, err in (("ce_fwd", "fwd", 52, err_fwd),
                                      ("ce_bwd", "bwd", 80, err_bwd))
     }
@@ -1238,23 +1335,39 @@ def slice_phase(torch, tmp: Path, card: str, device: str = "cuda") -> dict:
 
 def steady_step(torch, trainer, label: str, card: str, reps: int = 20) -> dict:
     """The step the CLI ran, on one of its batches, timed by the host clock
-    over ``reps`` steps after 3 of warm-up, then profiled."""
+    over ``reps`` steps after 3 of warm-up: in full fp32, the math mode the
+    ``Trainer`` sets, and then with TF32 on for convolutions and matrix
+    products, for comparison only; then profiled in fp32."""
+    from supervised_dispnet_tpu_torch.utils.device import set_fp32_math
+
     B, H, W = MAIN_SHAPE
+    if torch.backends.cudnn.allow_tf32 or torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("the trainer left TF32 on: its step is not fp32")
     train_loader, _ = trainer.make_loaders()
     batches = iter(train_loader)
     batch = trainer.prep_train_batch(next(batches))
     batches.close()  # stops the loader's prefetch thread
-    for _ in range(3):
-        trainer.train_step(batch)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        trainer.train_step(batch)
-    torch.cuda.synchronize()
-    step_ms = (time.perf_counter() - t0) / reps * 1e3
+
+    def timed() -> float:
+        for _ in range(3):
+            trainer.train_step(batch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            trainer.train_step(batch)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / reps * 1e3
+
+    step_ms = timed()
+    set_fp32_math(tf32=True)
+    try:
+        tf32_ms = timed()
+    finally:
+        set_fp32_math()
     print(f"  slice step: {label} {H}x{W} B={B} fp32 train step {step_ms:.3f} ms, "
-          f"{B / step_ms * 1e3:.1f} img/s on {card}", flush=True)
-    return {"step_ms": step_ms,
+          f"{B / step_ms * 1e3:.1f} img/s; with TF32 {tf32_ms:.3f} ms, "
+          f"{B / tf32_ms * 1e3:.1f} img/s, on {card}", flush=True)
+    return {"step_ms": step_ms, "step_ms_tf32": tf32_ms,
             "profile": profile_steps(torch, lambda: trainer.train_step(batch))}
 
 
@@ -1369,6 +1482,16 @@ def classification_phase(torch, tmp: Path, card: str, multiscale: bool = False,
     out = {"launches": launches, "train_losses": losses, "val": val}
     if not multiscale:
         out.update(steady_step(torch, trainer, "DispResNet-50 classification (64 bins)", card))
+        # every CE kernel in the profile is one of the two, and each rounds to
+        # one a step (the profiler can drop an event; the launch counters
+        # above hold the exact count)
+        ce = {r["kernel"]: r["calls_per_step"] for r in out["profile"]["own_kernels"]
+              if CE_KERNEL in r["kernel"]}
+        if (sorted(sum(k in name for k in OWN_KERNELS[4:]) for name in ce) != [1, 1]
+                or not all(any(k in name for name in ce) for k in OWN_KERNELS[4:])
+                or not all(round(n) == 1 for n in ce.values())):
+            raise AssertionError(f"the step's profile shows CE kernels {ce}, not one "
+                                 f"forward and one backward a step")
     return out
 
 
@@ -1431,8 +1554,10 @@ def inverse_warp_phase(torch, device: str = "cuda") -> dict:
 
 # the port's own kernels' names in a profile (csrc/*.cu)
 OWN_KERNELS = ("berhu_forward_group_kernel", "berhu_backward_group_kernel",
-               "warp_forward_group_kernel", "warp_backward_", "ce_sum_kernel",
-               "ce_final_kernel", "ce_bwd_kernel")
+               "warp_forward_group_kernel", "warp_backward_", "ce_forward_kernel",
+               "ce_backward_kernel")
+# any kernel of csrc/ce.cu, this design's or another's, in a profile
+CE_KERNEL = "::ce_"
 
 
 def profile_steps(torch, step, n: int = 5, top: int = 12) -> dict:
@@ -1462,7 +1587,8 @@ def profile_steps(torch, step, n: int = 5, top: int = 12) -> dict:
                 "us_per_call": e.self_device_time_total / max(e.count, 1)}
 
     rows = [row(e) for e in kernels[:top]]
-    own = [row(e) for e in kernels if any(k in e.key for k in OWN_KERNELS)]
+    own = [row(e) for e in kernels
+           if CE_KERNEL in e.key or any(k in e.key for k in OWN_KERNELS)]
     print(f"  profile over {n} steps: device busy {busy_us / n / 1e3:.3f} ms of "
           f"{wall_us / n / 1e3:.3f} ms a step ({busy_us / wall_us:.1%}); "
           f"{len(kernels)} kernels", flush=True)
@@ -1740,7 +1866,8 @@ def main() -> int:
     if not all(e["launches"] > 0 for e in kernels.values()):
         raise AssertionError(f"a kernel was not launched on its path: {launches}")
     print(json.dumps({"slices": {
-        name: {"step_ms": r["step_ms"], "card": card, "val": r["val"],
+        name: {"step_ms": r["step_ms"], "step_ms_tf32": r["step_ms_tf32"], "card": card,
+               "val": r["val"],
                "launches": r["launches"], "profile": r["profile"]}
         for name, r in (("supervised_berhu_dispresnet50", sl),
                         ("selfsup_dispnet_posexpnet", ss),

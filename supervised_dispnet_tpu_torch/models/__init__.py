@@ -41,8 +41,11 @@ def get_disp_net(name: str, head: str = "disp", num_bins: int = 64,
             raise ValueError(
                 f"classification head is only supported on disp_res*, got {name!r}")
         if fused_upsample:
-            raise NotImplementedError(
-                "DispNetS serves the unfused decoder only; see ROADMAP.md")
+            # as the JAX factory: DispNetS's analog (a pixel-shuffle
+            # ConvTranspose) measured negative on the TPU and is not exposed
+            raise ValueError(
+                "--fused-upsample is only supported on disp_res* / "
+                f"disp_vgg_bn (resize->conv decoders), got {name!r}")
         model = DispNetS(generator=generator)
     else:
         model = DispResNet(_RESNETS[key], head=head, num_bins=num_bins,

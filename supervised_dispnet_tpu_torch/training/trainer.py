@@ -26,7 +26,7 @@ from supervised_dispnet_tpu_torch.losses.classification import DepthBins, logits
 from supervised_dispnet_tpu_torch.training.train_step import (
     SUPERVISED_LOSSES, make_eval_step, make_selfsup_eval_step, make_selfsup_train_step,
     make_supervised_train_step)
-from supervised_dispnet_tpu_torch.utils.device import resolve_device
+from supervised_dispnet_tpu_torch.utils.device import resolve_device, set_fp32_math
 from supervised_dispnet_tpu_torch.utils.logging import (
     AverageMeter, CsvLogger, JsonlLogger, TermLogger)
 
@@ -113,6 +113,7 @@ class Trainer:
                  pose_model: torch.nn.Module | None = None,
                  device: str | torch.device = "cuda"):
         self.device = resolve_device(device)
+        set_fp32_math()
         self.selfsup = cfg.loss == "selfsup"
         self.classification = cfg.loss == "classification"
         if not (self.selfsup or self.classification) and cfg.loss not in SUPERVISED_LOSSES:

@@ -1,8 +1,10 @@
 """The port's depth-as-classification losses against the JAX package's, on
 the CPU: ``DepthBins`` (edges, centers and exactly equal labels), the plain
 CE against the XLA loss and the interpret-mode Pallas op (value and
-logits-gradient), the multi-scale CE, the soft decode, and the layouts the
-CUDA wrapper hands its kernels. Inputs are made with numpy from a seed."""
+logits-gradient), the kernels' split into a forward that keeps each
+pixel's logsumexp and a backward from it, the multi-scale CE, the soft
+decode, and the layouts and paths the CUDA wrapper hands its kernels.
+Inputs are made with numpy from a seed."""
 
 import jax
 import jax.numpy as jnp
@@ -93,6 +95,123 @@ def test_ce_plain_matches_jax(impl, K, mask_kind):
         assert loss.item() == 0.0 and not lg.grad.any()
 
 
+@pytest.mark.parametrize("K", [64, 48, 1])
+@pytest.mark.parametrize("mask_kind", ["sparse", "empty", "float"])
+def test_ce_split_plain_matches_jax(K, mask_kind):
+    """``ce_forward_plain`` then ``ce_backward_plain`` from its lse and
+    stats, the kernels' split, against the interpret-mode Pallas op: value
+    and logits-gradient with the tolerances of ``test_ce_plain_matches_jax``;
+    the count is the mask's sum."""
+    logits, gt, mask = _ce_inputs((2, 8, 12), K, mask_kind, seed=K + 1)
+    jb, tb = _bins(K)
+    ref_loss, ref_grad = jax.value_and_grad(JAX_CE["pallas"])(
+        jnp.asarray(logits), jnp.asarray(gt), jnp.asarray(mask), jb)
+    x, m = torch.from_numpy(logits), torch.from_numpy(mask)
+    labels = tb.depth_to_index(torch.from_numpy(gt))
+    stats, lse = kc.ce_forward_plain(x, labels, m)
+    grad = kc.ce_backward_plain(x, labels, m, lse, stats, torch.tensor(1.0))
+    assert lse.shape == (2, 2, 8, 12) and grad.shape == x.shape
+    ref_grad = np.asarray(ref_grad)
+    np.testing.assert_allclose(stats[0].item(), float(ref_loss), rtol=1e-5, atol=1e-7)
+    assert stats[1].item() == pytest.approx(float(mask.sum()), rel=1e-6)
+    np.testing.assert_allclose(grad.numpy(), ref_grad, rtol=1e-5,
+                               atol=1e-6 * np.abs(ref_grad).max())
+
+
+@pytest.mark.parametrize("K", [64, 48])
+def test_ce_split_lse_matches_jax_logsumexp_with_minus_inf_bins(K):
+    """``lse[0]`` against ``jax.nn.logsumexp``, rtol 1e-6, on rows that hold
+    -inf: in bin 0 alone, in the 20 leading bins, in every third bin, and a
+    row of only -inf (lse -inf on both sides); the gradient stays finite
+    wherever a row has a finite entry at its label."""
+    logits, gt, mask = _ce_inputs((2, 8, 12), K, "sparse", seed=5)
+    rows = logits.reshape(-1, K)
+    rows[0::5, 0] = -np.inf
+    rows[1::5, :20] = -np.inf
+    rows[2::5, ::3] = -np.inf
+    rows[3] = -np.inf
+    x, m = torch.from_numpy(logits), torch.from_numpy(mask)
+    labels = cls.DepthBins(num_bins=K).depth_to_index(torch.from_numpy(gt))
+    stats, lse = kc.ce_forward_plain(x, labels, m)
+    ref = np.asarray(jax.nn.logsumexp(jnp.asarray(logits), axis=-1))
+    assert np.isneginf(ref.reshape(-1)[3]) and np.isfinite(np.delete(ref.reshape(-1), 3)).all()
+    np.testing.assert_allclose(lse[0].numpy(), ref, rtol=1e-6)
+    grad = kc.ce_backward_plain(x, labels, m, lse, stats, torch.tensor(1.0)).reshape(-1, K)
+    at_label = np.take_along_axis(rows, labels.numpy().reshape(-1, 1), 1)[:, 0]
+    assert torch.isfinite(grad[torch.from_numpy(np.isfinite(at_label))]).all()
+
+
+def test_ce_split_backward_keeps_its_precision_at_large_logits():
+    """Logits at 3e4 +- a few units, where an ulp of the lse is 2e-3: the
+    backward's exp((x - lse[0]) - lse[1]) matches the plain CE's autograd
+    gradient (loss rtol 1e-5; gradient rtol 1e-5 / atol 1e-6 of its largest
+    entry), and lse[1] holds lse[0]'s rounding error. With lse[0] alone the
+    gradient misses that tolerance: the split is what keeps it."""
+    rng = np.random.default_rng(9)
+    shape, K = (2, 8, 12), 64
+    logits = (3e4 + 2.0 * rng.standard_normal((*shape, K))).astype(np.float32)
+    labels = torch.from_numpy(rng.integers(0, K, shape).astype(np.int32))
+    m = torch.from_numpy(rng.uniform(size=shape) < 0.5)
+    x = torch.from_numpy(logits).requires_grad_(True)
+    loss = cls.depth_classification_loss_plain(x, None, m, labels=labels)
+    (ref,) = torch.autograd.grad(loss, x)
+    stats, lse = kc.ce_forward_plain(x.detach(), labels, m)
+    g = torch.tensor(1.0)
+    grad = kc.ce_backward_plain(x.detach(), labels, m, lse, stats, g)
+    tol = {"rtol": 1e-5, "atol": 1e-6 * float(ref.abs().max())}
+    np.testing.assert_allclose(stats[0].item(), loss.item(), rtol=1e-5)
+    torch.testing.assert_close(grad, ref, **tol)
+    exact = torch.logsumexp(torch.from_numpy(logits).double(), -1)
+    assert float((lse[0].double() + lse[1].double() - exact).abs().max()) < 1e-5
+    assert float((lse[0].double() - exact).abs().max()) > 1e-4
+    one_float = torch.stack([lse[0], torch.zeros_like(lse[1])])
+    assert not torch.allclose(kc.ce_backward_plain(x.detach(), labels, m, one_float, stats, g),
+                              ref, **tol)
+
+
+def _nchw_view(B, H, W, K, offset=0):
+    """The (B, H, W, K) view of an NCHW tensor, ``offset`` floats into its
+    storage."""
+    storage = torch.randn(B * K * H * W + offset)
+    return storage[offset:].view(B, K, H, W).permute(0, 2, 3, 1)
+
+
+def _shifted(t: torch.Tensor, offset: int) -> torch.Tensor:
+    """``t``'s values ``offset`` elements into a larger storage."""
+    storage = torch.zeros(t.numel() + offset, dtype=t.dtype)
+    storage[offset:] = t.reshape(-1)
+    return storage[offset:].view(t.shape)
+
+
+VECTOR_CASES = {
+    # name: (logits, labels offset, mask dtype, mask offset, the vector path)
+    "NCHW view, P % 4 == 0": (lambda: _nchw_view(2, 8, 12, 64), 0, torch.bool, 0, True),
+    "NCHW view, K=100": (lambda: _nchw_view(2, 8, 12, 100), 0, torch.bool, 0, True),
+    "NCHW view, float mask": (lambda: _nchw_view(2, 8, 12, 64), 0, torch.float32, 0, True),
+    "contiguous (..., K)": (lambda: torch.randn(2, 8, 12, 64), 0, torch.bool, 0, False),
+    "P not a multiple of 4": (lambda: _nchw_view(2, 7, 13, 64), 0, torch.bool, 0, False),
+    "logits offset by one float": (lambda: _nchw_view(2, 8, 12, 64, offset=1), 0, torch.bool,
+                                   0, False),
+    "labels offset by one": (lambda: _nchw_view(2, 8, 12, 64), 1, torch.bool, 0, False),
+    "byte mask offset by one byte": (lambda: _nchw_view(2, 8, 12, 64), 0, torch.bool, 1, False),
+    "float mask offset by one float": (lambda: _nchw_view(2, 8, 12, 64), 0, torch.float32, 1,
+                                       False),
+}
+
+
+@pytest.mark.parametrize("name", sorted(VECTOR_CASES))
+def test_ce_vector_path_is_chosen_by_shape_and_alignment(name):
+    """4 pixels a thread only for the NCHW view with P a multiple of 4 and
+    16-byte-aligned logits and labels (the mask at 4 of its elements); the
+    scalar path otherwise. CPU tensors: the choice needs no launch."""
+    make, label_offset, mask_dtype, mask_offset, want = VECTOR_CASES[name]
+    logits = make()
+    shape = logits.shape[:-1]
+    labels = _shifted(torch.zeros(shape, dtype=torch.int32), label_offset)
+    mask = _shifted(torch.ones(shape, dtype=mask_dtype), mask_offset)
+    assert kc.vector_path(logits, labels, mask) is want
+
+
 def test_ce_plain_reads_an_nchw_view_as_a_contiguous_tensor():
     """The (B, H, W, K) view of an NCHW tensor (the conv head's output)
     gives the same loss and gradient as the same values contiguous, and its
@@ -168,9 +287,9 @@ def test_ce_kernel_wrapper_takes_cuda_tensors_only():
     with pytest.raises(ValueError, match="CUDA tensor"):
         kc.cross_entropy_cuda(lg, labels, m)
     with pytest.raises(ValueError, match="CUDA tensor"):
-        kc.ce_forward_stats(lg, labels, m)
+        kc.ce_forward(lg, labels, m)
     with pytest.raises(ValueError, match="CUDA tensor"):
-        kc.ce_backward(lg, labels, m, torch.zeros(2), torch.ones(()))
+        kc.ce_backward(lg, labels, m, torch.zeros(2, 1, 4, 5), torch.zeros(2), torch.ones(()))
     assert (kc.ce_fwd_launches, kc.ce_bwd_launches) == launches
 
 

@@ -63,7 +63,8 @@ def one_step(request):
     batch = _batch()
     jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
 
-    # the gradients the JAX step applies, by the step's own recipe
+    # the gradients the JAX step applies, by the step's own recipe, compiled
+    # once (op by op it took several times as long)
     def loss_fn(params):
         imgs, _, depth = jax_augment_batch(
             jax.random.PRNGKey(0), jbatch["tgt"].astype(jnp.float32)[:, None] / 255.0,
@@ -75,7 +76,7 @@ def one_step(request):
             return jax_cls.multiscale_classification_loss(out, depth, mask, JAX_BINS)
         return jax_cls.depth_classification_loss(out, depth, mask, JAX_BINS)
 
-    ref_loss_fn, ref_grads = jax.value_and_grad(loss_fn)(state.params["disp"])
+    ref_loss_fn, ref_grads = jax.jit(jax.value_and_grad(loss_fn))(state.params["disp"])
     step = jax_make_step(model, "classification", bins=JAX_BINS, aug=JAX_NO_AUG,
                          donate=False)
     new_state, metrics = step(state, jbatch)

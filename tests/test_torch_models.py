@@ -266,6 +266,17 @@ def test_registry_serves_dispnet():
         get_disp_net("disp_vgg_bn", device="cpu")
 
 
+def test_registry_refuses_fused_upsample_on_dispnet():
+    """DispNetS has no resize->conv decoder to fuse: the port's factory
+    raises ValueError for the same arguments as the JAX factory."""
+    from supervised_dispnet_tpu.models import get_disp_net as jax_get_disp_net
+
+    with pytest.raises(ValueError, match="fused-upsample"):
+        jax_get_disp_net("dispnet", fused_upsample=True)
+    with pytest.raises(ValueError, match="fused-upsample"):
+        get_disp_net("dispnet", fused_upsample=True, device="cpu")
+
+
 def test_downsample2x_avg_matches_jax():
     from supervised_dispnet_tpu.ops.resize import downsample2x_avg as jax_down
 

@@ -22,6 +22,7 @@ from supervised_dispnet_tpu_torch.ops.cuda import warp as kw
 from supervised_dispnet_tpu_torch.training.trainer import (
     BEST_NAME, CHECKPOINT_NAME, POSE_BEST_NAME, POSE_CHECKPOINT_NAME, Trainer,
     TrainerConfig)
+from supervised_dispnet_tpu_torch.utils.device import set_fp32_math
 
 REPO = Path(__file__).resolve().parents[1]
 PKG = Path(supervised_dispnet_tpu_torch.__file__).parent
@@ -77,6 +78,28 @@ def test_entry_points_need_the_card_unless_asked_for_the_cpu(tmp_path):
     with pytest.raises(RuntimeError, match="--device cpu"):
         train_cli.main([str(tmp_path), "--network", "disp_res_18"])
     assert get_disp_net("disp_res_18", device="cpu").encoder.conv1.weight.device.type == "cpu"
+
+
+@pytest.fixture
+def tf32_flags():
+    """The two process-wide TF32 flags, read as a pair; restored after the
+    test, so that no other test sees them changed."""
+    saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    yield lambda: (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def test_card_math_is_full_fp32_unless_tf32_is_asked_for(tf32_flags):
+    """``set_fp32_math`` turns TF32 off for cuDNN convolutions and matrix
+    products by default and on when asked; a ``Trainer`` built on the CPU
+    leaves both off, whatever they were before."""
+    set_fp32_math(tf32=True)
+    assert tf32_flags() == (True, True)
+    set_fp32_math()
+    assert tf32_flags() == (False, False)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    Trainer(TrainerConfig(), torch.nn.Conv2d(3, 1, 1), device="cpu")
+    assert tf32_flags() == (False, False)
 
 
 @pytest.mark.parametrize("argv,err", [

@@ -51,7 +51,8 @@ def one_step():
     batch = _batch()
     jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
 
-    # the gradients the JAX step applies, by the step's own recipe
+    # the gradients the JAX step applies, by the step's own recipe, compiled
+    # once (op by op it took several times as long)
     def loss_fn(params):
         imgs, _, depth = jax_augment_batch(
             jax.random.PRNGKey(0), jbatch["tgt"].astype(jnp.float32)[:, None] / 255.0,
@@ -62,7 +63,7 @@ def one_step():
         return jax_msl([1.0 / d[..., 0] for d in disps], depth, mask,
                        lambda p, g, m: berhu_loss_pallas(p, g, m, interpret=True))
 
-    ref_loss_fn, ref_grads = jax.value_and_grad(loss_fn)(state.params["disp"])
+    ref_loss_fn, ref_grads = jax.jit(jax.value_and_grad(loss_fn))(state.params["disp"])
     step = jax_make_step(model, "berhu", aug=JAX_NO_AUG, donate=False,
                          use_pallas_losses=True)
     new_state, metrics = step(state, jbatch)
