@@ -21,7 +21,13 @@ Phases; any failure exits non-zero:
      - the bilinear warp sampler's forward, image+coordinate backward and
        coordinate-only backward, at the main-path shape with coordinates from
        a real inverse-warp projection (both padding modes), random
-       out-of-bounds coordinates, C=1 and a ragged (3, 37, 53);
+       out-of-bounds coordinates, C=1 and a ragged (3, 37, 53); and the
+       cases the image+coordinate backward's shared window has to survive: a
+       road scene's smooth-depth projection (both padding modes: in border
+       mode the pixels thrown out of view pile onto the edges), near points
+       thrown far, an output of another size whose tiles do not divide it,
+       C=1 and C=4; the backward's device time (kernel and memset, one each a
+       call) on four kinds of coordinates, and ``F.grid_sample``'s;
      - the grouped warp forward and coordinate-only backward (one launch for
        up to 16 problems) on the self-supervised step's 8 problems (both
        padding modes), a ragged group of mixed shapes and a group of 20,
@@ -766,21 +772,48 @@ def ce_phase(torch, device: str = "cuda") -> dict:
     }
 
 
-def _projection_coords(torch, B: int, H: int, W: int, seed: int):
-    """Pixel coordinates as the main path's warp gets them: the target's
-    pixels back-projected at a depth of 1 / disparity (disparity in the
-    head's range) and projected into a reference frame moved by a small
-    random pose, with KITTI intrinsics (``ops.warp``'s own functions)."""
+def _kitti_k(torch, B: int, H: int, W: int):
+    """KITTI's intrinsics scaled to (H, W), (B, 3, 3)."""
+    return torch.tensor(KITTI_K).expand(B, 3, 3) * torch.tensor(
+        [[W / 416, 1, W / 416], [1, H / 128, H / 128], [1, 1, 1]])
+
+
+def _projection_coords(torch, B: int, H: int, W: int, seed: int, scene: str = "random",
+                       out_hw=None):
+    """Pixel coordinates as the main path's warp gets them (``ops.warp``'s
+    own geometry, KITTI intrinsics): the target's pixels back-projected and
+    projected into a reference frame of (H, W). ``scene='random'``: the
+    target is (H, W), its depth 1 / disparity with a random disparity per
+    pixel in the head's range, the pose small and random. ``'road'``: the
+    target is ``out_hw`` (default (H, W)), its depth a road scene's (80 m
+    above the horizon, falling to ~6 m at the bottom row, times 1 + 5%
+    noise), the pose a forward drive (0.5 m towards the scene: a zoom that
+    throws the bottom corners out of view) with a small sideways move and
+    yaw. ``'road_near'``: the same with 5% of the pixels at a tenth of their
+    depth, thrown far from their neighbours."""
     from supervised_dispnet_tpu_torch.ops import warp as wp
 
     g = torch.Generator().manual_seed(seed)
-    disp = 10.0 * torch.sigmoid(torch.randn(B, H, W, generator=g)) + 0.01
-    pose = 0.02 * torch.randn(B, 6, generator=g)
-    K = torch.tensor(KITTI_K).expand(B, 3, 3) * torch.tensor(
-        [[W / 416, 1, W / 416], [1, H / 128, H / 128], [1, 1, 1]])
-    cam = wp.pixel2cam(1.0 / disp, torch.linalg.inv(K))
-    proj = K @ wp.pose_vec2mat(pose)
-    x, y, _ = wp.cam2pixel(cam, proj[:, :, :3], proj[:, :, 3:])
+    if scene == "random":
+        disp = 10.0 * torch.sigmoid(torch.randn(B, H, W, generator=g)) + 0.01
+        pose = 0.02 * torch.randn(B, 6, generator=g)
+        K = _kitti_k(torch, B, H, W)
+        cam = wp.pixel2cam(1.0 / disp, torch.linalg.inv(K))
+        proj = K @ wp.pose_vec2mat(pose)
+        x, y, _ = wp.cam2pixel(cam, proj[:, :, :3], proj[:, :, 3:])
+        return x, y
+    Ho, Wo = out_hw or (H, W)
+    rows = torch.arange(Ho, dtype=torch.float32)[:, None].expand(Ho, Wo)
+    fy, cy = 246.3 * Ho / 128, 64.0 * Ho / 128
+    depth = (1.65 * fy / (rows - cy).clamp(min=0.5)).clamp(3.0, 80.0)
+    depth = depth * (1.0 + 0.05 * torch.randn(B, Ho, Wo, generator=g))
+    if scene == "road_near":
+        near = torch.rand(B, Ho, Wo, generator=g) < 0.05
+        depth = torch.where(near, 0.1 * depth, depth)
+    pose = torch.tensor([0.05, 0.0, -0.5, 0.0, 0.0, 0.0]) + torch.cat(
+        [0.01 * torch.randn(B, 3, generator=g), 0.003 * torch.randn(B, 3, generator=g)], 1)
+    x, y, _ = wp.warp_coords(depth, pose, _kitti_k(torch, B, H, W), (H, W),
+                             tgt_intrinsics=_kitti_k(torch, B, Ho, Wo))
     return x, y
 
 
@@ -789,11 +822,14 @@ def _warp_case(torch, rng, shape, coords="projection", out_hw=None, seed=0,
     """img (B, H, W, C) uniform in [-1, 1] (normalised images), coordinates
     (B, Ho, Wo), an upstream gradient (B, Ho, Wo, C) uniform in [-1, 1];
     all on the card. ``coords='random'`` spreads them over three times the
-    image, most out of bounds."""
+    image, most out of bounds; 'projection' (a random per-pixel depth, Ho,
+    Wo = H, W), 'road' and 'road_near' are ``_projection_coords``' scenes."""
     B, H, W, C = shape
     Ho, Wo = out_hw or (H, W)
     if coords == "projection":
         x, y = _projection_coords(torch, B, H, W, seed)
+    elif coords in ("road", "road_near"):
+        x, y = _projection_coords(torch, B, H, W, seed, coords, out_hw)
     else:
         x = torch.from_numpy(rng.uniform(-W, 2 * W, (B, Ho, Wo)).astype(np.float32))
         y = torch.from_numpy(rng.uniform(-H, 2 * H, (B, Ho, Wo)).astype(np.float32))
@@ -818,8 +854,18 @@ def warp_phase(torch, device: str = "cuda") -> dict:
     values and every gradient each kernel forms. Tolerances: the sample, dx
     and dy rtol 1e-5 / atol 1e-6 (unit-scale images and upstream gradient;
     the kernel sums the same products in another order); dimg rtol 1e-4 /
-    atol 1e-5 (atomics change the order of its sums from run to run); the
-    coordinate-only backward's dx, dy bit-equal to the full backward's."""
+    atol 1e-5 (atomics, in shared memory and in dimg, change the order of
+    its sums from run to run); the coordinate-only backward's dx, dy
+    bit-equal to the full backward's. The cases: a random per-pixel depth's
+    projection, random coordinates mostly out of bounds, ragged shapes, and
+    the ones the image+coordinate backward's shared window has to survive
+    (a road scene's smooth depth, whose tiles' corners fit a window; its
+    border mode, where the pixels thrown out of view pile onto the edges;
+    near points thrown far; an output of another size, whose tiles do not
+    divide it; C = 1 and 4). Then times at the main path's shape: CUDA
+    events of each call, and the image+coordinate backward's device time
+    (kernel and memset) on four kinds of coordinates, with
+    ``F.grid_sample``'s beside."""
     from supervised_dispnet_tpu_torch.ops.cuda import warp as kw
 
     rng = np.random.default_rng(3)
@@ -833,6 +879,15 @@ def warp_phase(torch, device: str = "cuda") -> dict:
         "ragged (3,37,53,3) projection zeros": ((3, 37, 53, 3), "projection", None, "zeros"),
         "ragged (3,37,53,3) -> (19,29) random border": ((3, 37, 53, 3), "random", (19, 29),
                                                         "border"),
+        f"{main} road zeros": ((B, H, W, 3), "road", None, "zeros"),
+        f"{main} road border, piles on the edges": ((B, H, W, 3), "road", None, "border"),
+        f"{main} road, 5% near points thrown far, zeros": ((B, H, W, 3), "road_near", None,
+                                                           "zeros"),
+        f"{main} -> (100,300) road, ragged tiles, border": ((B, H, W, 3), "road", (100, 300),
+                                                            "border"),
+        f"C=1 ({B},{H},{W},1) road border": ((B, H, W, 1), "road", None, "border"),
+        f"C=4 ({B},{H},{W},4) road near points zeros": ((B, H, W, 4), "road_near", None,
+                                                         "zeros"),
     }
     err = {"warp_fwd": 0.0, "warp_bwd": 0.0, "warp_bwd_coords": 0.0}
     for i, (name, (shape, coords, out_hw, mode)) in enumerate(cases.items()):
@@ -906,6 +961,28 @@ def warp_phase(torch, device: str = "cuda") -> dict:
         "coords_lib": cuda_ms(torch, lambda: torch.autograd.grad(
             lib_coords, lib_grid, g_nchw, retain_graph=True)),
     }
+    # device time: the image+coordinate backward (its kernel and the memset
+    # that zeroes dimg) on four kinds of coordinates; F.grid_sample's calls
+    # (every device event of a call) beside
+    bwd_k = "warp_backward_kernel"
+    dev, lib_dev = {}, {}
+    for name, (coords, mode) in {"projection zeros": ("projection", "zeros"),
+                                 "road zeros": ("road", "zeros"),
+                                 "random out of bounds zeros": ("random", "zeros"),
+                                 "road border": ("road", "border")}.items():
+        args = ((img, x, y, g) if name == "projection zeros" else
+                _warp_case(torch, rng, (B, H, W, 3), coords, seed=2, device=device))
+        got = launch_device_us(torch, lambda a=args, m=mode: kw.warp_backward(*a, m),
+                               (bwd_k, "Memset"))
+        dev[name] = {"kernel_us": got[bwd_k], "memset_us": got["Memset"]}
+    for key, fn in (("fwd", lambda: F.grid_sample(img_nchw, grid, mode="bilinear",
+                                                   padding_mode="zeros", align_corners=True)),
+                    ("bwd", lambda: torch.autograd.grad(lib_full, (lib_in, lib_grid), g_nchw,
+                                                        retain_graph=True)),
+                    ("coords", lambda: torch.autograd.grad(lib_coords, lib_grid, g_nchw,
+                                                           retain_graph=True))):
+        got = device_us(torch, fn, [""], reps=100)[""]
+        lib_dev[key] = {"us": got[0] * got[1], "events": got[1]}
     # the least each must move (img, x, y, g read once, outputs written
     # once, f32) and do (~20 flops a pixel of corner setup, ~9 a channel of
     # blend, ~14 a channel of dx/dy and 8 of dimg weights)
@@ -922,15 +999,27 @@ def warp_phase(torch, device: str = "cuda") -> dict:
           f"coords bwd kernel_ms {t['coords']:.5f} plain_ms {t['coords_plain']:.5f} "
           f"grid_sample_ms {t['coords_lib']:.5f}; bound_us "
           + ", ".join(f"{k} {v[0] * 1e3:.3f}" for k, v in bounds.items()), flush=True)
+    bwd_bound_us = bounds["warp_bwd"][0] * 1e3
+    for name, d in dev.items():
+        print(f"  warp bwd {main} {name}: device {d['kernel_us']:.2f} us kernel + "
+              f"{d['memset_us']:.2f} us memset, one each a call; bound {bwd_bound_us:.3f} "
+              f"us, {bwd_bound_us / d['kernel_us']:.1%} of it (kernel alone)", flush=True)
+    print(f"  warp {main} F.grid_sample device us a call (every event): "
+          + "; ".join(f"{k} {v['us']:.2f} ({v['events']:g} events)" for k, v in lib_dev.items()),
+          flush=True)
     src = "supervised_dispnet_tpu_torch/csrc/warp.cu"
-    return {
+    out = {
         name: {"name": name, "route": "cuda", "source": src, "replaces": f"{TPU_WARP}:{line}",
                "max_abs_err": err[name], "ms": t[key], "plain_ms": t[f"{key}_plain"],
                "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
-               "library_ms": t[f"{key}_lib"]}
+               "library_ms": t[f"{key}_lib"], "library_device_us": lib_dev[key]["us"]}
         for name, key, line in (("warp_fwd", "fwd", 114), ("warp_bwd", "bwd", 150),
                                 ("warp_bwd_coords", "coords", 197))
     }
+    out["warp_bwd"].update(device_us=dev["projection zeros"]["kernel_us"],
+                           memset_us=dev["projection zeros"]["memset_us"],
+                           device_us_by_case=dev)
+    return out
 
 
 def _step_problems(torch, rng, device: str = "cuda", seed: int = 30) -> list:
@@ -1011,6 +1100,22 @@ def device_us(torch, fn, names, reps: int = 20) -> dict:
         count = sum(e.count for e in ev)
         out[name] = (sum(e.self_device_time_total for e in ev) / max(count, 1), count / reps)
     return out
+
+
+def launch_device_us(torch, fn, kernels, reps: int = 100, tries: int = 3) -> dict:
+    """Device us a launch of each of ``kernels`` (by substring) in a call of
+    ``fn``, from a profile of ``reps`` calls in which each rounds to one
+    event a call and no other device event shows (the profiler can drop
+    events); profiled again up to ``tries`` times, then raises."""
+    for _ in range(tries):
+        got = device_us(torch, fn, [*kernels, ""], reps=reps)
+        every = got.pop("")[1]
+        counts = [n for _, n in got.values()]
+        if all(round(n) == 1 for n in counts) and abs(every - sum(counts)) < 1e-9:
+            return {k: v[0] for k, v in got.items()}
+        print(f"    the profile shows {got} of {every:g} device events a call; again",
+              flush=True)
+    raise AssertionError(f"no profile with one event a call of each of {kernels}: {got}")
 
 
 def host_us(torch, fn, reps: int = 500) -> float:

@@ -12,7 +12,11 @@ The forward and the coordinate-only backward also come grouped
 (``warp_forward_many``, ``warp_backward_coords_many``): one launch covers up
 to ``MAX_PROBLEMS`` sampling problems of any shapes, so the photometric
 loss's 4 scales x R refs cost one call a step each way. The single-problem
-entries launch the same kernels with a one-entry table.
+entries launch the same kernels with a one-entry table. The
+image+coordinate backward (``warp_backward``) takes one problem; a block
+covers a 2-D tile of its output and, where the tile's corners are in
+bounds and scattered, gathers its image gradient in a shared-memory window
+(``tile_plan`` picks the tile and the window's width).
 
 ``warp_fwd_launches``, ``warp_bwd_launches`` and ``warp_bwd_coords_launches``
 count the kernels' launches, so a run can show that it went through them;
@@ -23,6 +27,7 @@ those launches covered.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 import struct
 from collections.abc import Sequence
@@ -33,6 +38,8 @@ from supervised_dispnet_tpu_torch.ops.cuda import _build
 
 THREADS = 256  # csrc/warp.cu kThreads: output pixels a block
 MAX_PROBLEMS = 16  # csrc/warp.cu kMaxProblems: problems a grouped launch
+TILE_PIXELS = 256  # csrc/warp.cu kTilePixels: output pixels a block of warp_backward
+WIN_FLOATS = 12 * 1024 - 96  # csrc/warp.cu kWinFloats: floats of its shared window
 # csrc/warp.cu ``WarpProblem``, one row of a grouped launch's table, in the
 # C layout: img, x, y, g, out, dx, dy pointers, long P, int B, H, W, C,
 # block_start, padding to 8 bytes
@@ -42,10 +49,12 @@ _TABLES = [struct.Struct("@" + PROBLEM_ROW * n) for n in range(MAX_PROBLEMS + 1)
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SHAPE = [_I, _I, _I, _I, ctypes.c_long, _I, _I, _P]  # B, H, W, C, P, border, device, stream
+# B, H, W, C, Ho, Wo, tile_w, win_w, border, device, stream
+_TILED = [_I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]
 _GROUP = [_P, _I, _I, _I, _P]  # table, n, border, device, stream
 _SIGNATURES = {
     "warp_forward": [_P, _P, _P, _P, *_SHAPE],
-    "warp_backward": [_P, _P, _P, _P, _P, _P, _P, *_SHAPE],
+    "warp_backward": [_P, _P, _P, _P, _P, _P, _P, *_TILED],
     "warp_backward_coords": [_P, _P, _P, _P, _P, _P, *_SHAPE],
     "warp_forward_many": _GROUP,
     "warp_backward_coords_many": _GROUP,
@@ -157,6 +166,40 @@ def plan_groups(blocks: Sequence[int], max_problems: int = MAX_PROBLEMS
     return launches
 
 
+def window_stride(w: int, C: int) -> int:
+    """Floats of shared memory a window row of ``w`` pixels of C channels
+    takes in ``csrc/warp.cu`` (``window_stride``): w * C rounded up to a
+    float4, and 4 floats for the row's alignment pad."""
+    return (w * C + 3) // 4 * 4 + 4
+
+
+@functools.lru_cache(maxsize=256)
+def tile_plan(Ho: int, Wo: int, C: int, tile_pixels: int = TILE_PIXELS,
+              win_floats: int = WIN_FLOATS) -> tuple[int, int, int]:
+    """The image+coordinate backward's launch plan for an (Ho, Wo) output of
+    C channels: (tile_w, tile_h, win_w). A block covers a tile of tile_w x
+    tile_h = ``tile_pixels`` output pixels, tile_w a power of two from 32
+    (a warp on one row) up: the fewest tiles that cover (Ho, Wo), of those
+    the squarest (the smallest footprint in the image under a smooth warp).
+    win_w is the widest window, in pixels, whose rows, as many as the
+    tile's aspect asks, fit ``win_floats`` floats; the kernel clips a tile's
+    corner box to it where the box does not fit (0: never clip)."""
+    best = None
+    tile_w = 32
+    while tile_w <= tile_pixels:
+        tile_h = tile_pixels // tile_w
+        key = (-(-Ho // tile_h) * -(-Wo // tile_w), tile_w + tile_h)
+        if best is None or key < best[0]:
+            best = (key, tile_w, tile_h)
+        tile_w *= 2
+    _, tile_w, tile_h = best
+    win_w = 0
+    while (-(-(win_w + 1) * (tile_h + 1) // (tile_w + 1))
+           * window_stride(win_w + 1, C) <= win_floats):
+        win_w += 1
+    return tile_w, tile_h, win_w
+
+
 def _tables(shapes, pointers):
     """The packed table of each launch: (table bytes, problems in it).
     ``pointers[i]`` holds problem i's seven ``WarpProblem`` pointers (0 for
@@ -234,17 +277,19 @@ def warp_forward(img: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
 def warp_backward(img: torch.Tensor, x: torch.Tensor, y: torch.Tensor, g: torch.Tensor,
                   padding_mode: str = "zeros"):
     """Launch the image+coordinate backward: (dimg, dx, dy) from the upstream
-    gradient g (B, *S, C). dimg is summed with atomics, in an order that
-    changes from run to run."""
+    gradient g (B, *S, C), read as (B, Ho, Wo, C) with Wo = S[-1]. dimg is
+    summed with atomics, in an order that changes from run to run."""
     global warp_bwd_launches
     border, index = _border(padding_mode), img.get_device()
-    shape = _check_inputs(img, x, y, g, index)
+    B, H, W, C, P = _check_inputs(img, x, y, g, index)
+    Wo = x.shape[-1]
+    tile_w, _, win_w = tile_plan(P // Wo, Wo, C)
     dimg = torch.empty_like(img)
     dx, dy = torch.empty_like(x), torch.empty_like(y)
     lib = _lib()
     code = lib.warp_backward(img.data_ptr(), x.data_ptr(), y.data_ptr(), g.data_ptr(),
-                             dimg.data_ptr(), dx.data_ptr(), dy.data_ptr(), *shape, border,
-                             index, _stream(index))
+                             dimg.data_ptr(), dx.data_ptr(), dy.data_ptr(), B, H, W, C,
+                             P // Wo, Wo, tile_w, win_w, border, index, _stream(index))
     warp_bwd_launches += 1
     _build.check(lib, "warp", "warp_backward", code)
     return dimg, dx, dy

@@ -142,14 +142,20 @@ def test_grid_sample_matches_jax_and_torch(align_corners):
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():
-    """The kernel wrappers take CUDA tensors only; they never fall back."""
+    """The kernel wrappers take CUDA tensors only; they never fall back. The
+    image+coordinate backward refuses before its tile plan, with (B, Ho, Wo)
+    coordinates and flat (B, P) ones, in both padding modes."""
     img, x, y, cot = _case(*CASES["C1 Ho!=H"])
     t = [torch.from_numpy(a) for a in (img, x, y, cot)]
     launches = (kw.warp_fwd_launches, kw.warp_bwd_launches, kw.warp_bwd_coords_launches)
     with pytest.raises(ValueError, match="CUDA tensor"):
         kw.warp_forward(*t[:3])
-    with pytest.raises(ValueError, match="CUDA tensor"):
-        kw.warp_backward(*t)
+    B, C = img.shape[0], img.shape[3]
+    flat = [t[0], t[1].reshape(B, -1), t[2].reshape(B, -1), t[3].reshape(B, -1, C)]
+    for args in (t, flat):
+        for mode in ("zeros", "border"):
+            with pytest.raises(ValueError, match="CUDA tensor"):
+                kw.warp_backward(*args, mode)
     with pytest.raises(ValueError, match="CUDA tensor"):
         kw.warp_backward_coords(*t)
     with pytest.raises(ValueError, match="CUDA tensor"):
