@@ -64,6 +64,20 @@ Phases; any failure exits non-zero:
        validation against GT (which runs no CE) and ``Trainer.predict`` (1
        forward and 1 backward CE launch a step); then the same with
        ``--multiscale-classification`` for 3 steps (4 + 4 a step);
+     - Eigen-split evaluation (BASELINE config 2) through
+       ``cli.test_disp.main`` on a synthetic KITTI-raw tree written here (2
+       drives of 8 frames at 375x1242, calibration, a 100k-point velodyne
+       scan a frame, an Eigen-format list), with the supervised run's
+       DispResNet-50 checkpoint at 128x416, batch 8: on the card, on the
+       CPU (tables within rel 1e-3), with ``--fused-upsample`` (within rel
+       1e-4 of the unfused card run) and with ``--classification`` on the
+       classification run's checkpoint; then folder inference (BASELINE
+       config 1) through ``cli.run_inference.main`` on the 8 PNGs of one
+       drive, card against CPU (depths within rel 1e-3). These paths launch
+       none of the port's kernels, and the counts show it. The eval
+       forward's time at (8, 128, 416), unfused and fused, with a profile
+       (the fused decoder launches no upsample kernel), and the CLI's wall
+       time beside the host's decode, GT projection and resize time;
      - ``ops.warp.inverse_warp`` with its default ``diff_img=True`` and a
        backward into the image, depth and pose (the image+coordinate
        backward's path), against the plain sampler on the card;
@@ -75,8 +89,9 @@ Phases; any failure exits non-zero:
      off: each path (BerHu, classification single- and multi-scale,
      self-supervised) on the card with its kernels against the card with
      the plain versions, and against the CPU with the plain versions;
-  5. a JSON line of the slice and cross-check numbers, a JSON line of kernel
-     numbers, the card line, and as the last line
+  5. a JSON line of the slice and cross-check numbers, a JSON line of the
+     eval and inference numbers, a JSON line of kernel numbers, the card
+     line, and as the last line
      ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX: the machine with the card has none.
@@ -1435,7 +1450,9 @@ def slice_phase(torch, tmp: Path, card: str, device: str = "cuda") -> dict:
         raise AssertionError(f"the step's profile shows BerHu kernels {berhu}, not one "
                              f"grouped forward and one grouped backward a step")
     return {"launches": launches, "train_losses": losses,
-            "val": {k: epoch[k] for k in ("abs_rel", "rmse", "a1")}, **timed}
+            "val": {k: epoch[k] for k in ("abs_rel", "rmse", "a1")},
+            "checkpoint": str(Path(trainer.cfg.save_path) / "dispnet_checkpoint.pth.tar"),
+            **timed}
 
 
 def steady_step(torch, trainer, label: str, card: str, reps: int = 20) -> dict:
@@ -1584,7 +1601,8 @@ def classification_phase(torch, tmp: Path, card: str, multiscale: bool = False,
                              f"[{disp.min()}, {disp.max()}], not in [1/80, 1]")
     print(f"  predict: disparity {disp.shape} in [{disp.min():.4f}, {disp.max():.4f}]",
           flush=True)
-    out = {"launches": launches, "train_losses": losses, "val": val}
+    out = {"launches": launches, "train_losses": losses, "val": val,
+           "checkpoint": str(Path(trainer.cfg.save_path) / "dispnet_checkpoint.pth.tar")}
     if not multiscale:
         out.update(steady_step(torch, trainer, "DispResNet-50 classification (64 bins)", card))
         # every CE kernel in the profile is one of the two, and each rounds to
@@ -1598,6 +1616,215 @@ def classification_phase(torch, tmp: Path, card: str, multiscale: bool = False,
             raise AssertionError(f"the step's profile shows CE kernels {ce}, not one "
                                  f"forward and one backward a step")
     return out
+
+
+EVAL_BATCH = 8  # the eval CLI's default --batch-size
+EVAL_METRICS = ("abs_rel", "sq_rel", "rmse", "rmse_log", "a1", "a2", "a3")
+
+
+def kernel_counters():
+    """(module, counter) of every launch counter of the port's kernels."""
+    from supervised_dispnet_tpu_torch.ops.cuda import classification as kc
+    from supervised_dispnet_tpu_torch.ops.cuda import losses as kl
+    from supervised_dispnet_tpu_torch.ops.cuda import warp as kw
+
+    return [(m, a) for m in (kl, kw, kc) for a in sorted(vars(m))
+            if a.endswith(("_launches", "_problems"))]
+
+
+def _tables_agree(a: dict, b: dict, rtol: float) -> tuple[bool, float]:
+    """Each Eigen metric within rtol of the larger of the two (and 1e-9
+    where both are ~0); also the largest relative difference."""
+    worst, ok = 0.0, True
+    for k in EVAL_METRICS:
+        scale = max(abs(a[k]), abs(b[k]))
+        worst = max(worst, abs(a[k] - b[k]) / max(scale, 1e-30))
+        ok &= abs(a[k] - b[k]) <= rtol * scale + 1e-9
+    return ok, worst
+
+
+def _run_eval(tmp: Path, tree: Path, ckpt: str, name: str, *extra: str) -> dict:
+    """``cli.test_disp.main`` on the synthetic tree as a user runs it;
+    returns its table, its predictions and its wall seconds."""
+    from supervised_dispnet_tpu_torch.cli import test_disp
+
+    out = tmp / f"eval_{name}"
+    t0 = time.perf_counter()
+    results = test_disp.main([
+        "--pretrained-dispnet", ckpt, "--network", "disp_res_50",
+        "--dataset-dir", str(tree.parent), "--dataset-list", str(tree),
+        "--img-height", str(MAIN_SHAPE[1]), "--img-width", str(MAIN_SHAPE[2]),
+        "--batch-size", str(EVAL_BATCH), "--median-scaling", "--output-dir", str(out),
+        *extra])
+    wall = time.perf_counter() - t0
+    if not (results["n_images"] > 0 and all(math.isfinite(results[k]) for k in EVAL_METRICS)):
+        raise AssertionError(f"eval {name}: table not finite: {results}")
+    preds = np.load(out / "predictions.npy", allow_pickle=True)
+    print(f"  eval {name}: {len(preds)} frames in {wall:.3f} s; abs_rel "
+          f"{results['abs_rel']:.6f} rmse {results['rmse']:.6f} a1 {results['a1']:.6f}",
+          flush=True)
+    return {"table": {k: results[k] for k in (*EVAL_METRICS, "n_images")},
+            "wall_s": wall, "preds": [p.astype(np.float32) for p in preds]}
+
+
+def _max_rel(a: list, b: list) -> float:
+    return max(float(np.abs(x - y).max() / np.abs(y).max()) for x, y in zip(a, b))
+
+
+def host_pipeline_s(tree: Path) -> dict:
+    """The eval producer's host work for the tree, part by part: PNG decode,
+    the velodyne GT projection and the area resize to the network input."""
+    from supervised_dispnet_tpu_torch.data.image_resize import resize_area
+    from supervised_dispnet_tpu_torch.kitti_eval.depth_evaluation_utils import (
+        generate_depth_map)
+    from supervised_dispnet_tpu_torch.utils.image_io import read_png
+
+    parts = {"decode_s": 0.0, "gt_s": 0.0, "resize_s": 0.0}
+    for rel in tree.read_text().split():
+        img_path = tree.parent / rel
+        t0 = time.perf_counter()
+        img = read_png(img_path)
+        t1 = time.perf_counter()
+        drive = img_path.parents[2]
+        generate_depth_map(drive.parent, drive / "velodyne_points" / "data" /
+                           f"{img_path.stem}.bin", img.shape[:2])
+        t2 = time.perf_counter()
+        resize_area(img.astype(np.float32) / 255.0, *MAIN_SHAPE[1:])
+        t3 = time.perf_counter()
+        parts["decode_s"] += t1 - t0
+        parts["gt_s"] += t2 - t1
+        parts["resize_s"] += t3 - t2
+    return parts
+
+
+def eval_forward_timing(torch, ckpt: str, card: str) -> dict:
+    """The eval CLI's forward (model and 1 / disp) of DispResNet-50 at
+    (8, 128, 416) in full fp32, unfused and fused: CUDA events over 50 calls
+    after 5 of warm-up, the host's time to enqueue one forward on an idle
+    card (mean of 10), then a profile of 5 calls. The unfused decoder
+    upsamples with 5 ``upsample_bilinear2d`` launches a forward; the fused
+    one must launch none."""
+    from supervised_dispnet_tpu_torch.cli.test_disp import load_model
+
+    B, (H, W) = EVAL_BATCH, MAIN_SHAPE[1:]
+    x = (torch.rand(B, H, W, 3, generator=torch.Generator().manual_seed(12)) * 2 - 1).cuda()
+    out = {}
+    for name, fused in (("unfused", False), ("fused", True)):
+        model = load_model(ckpt, "disp_res_50", fused_upsample=fused, device="cuda")
+
+        def forward():
+            with torch.inference_mode():
+                return 1.0 / model(x)[0][..., 0]
+
+        ms = cuda_ms(torch, forward, reps=50, warmup=5)
+        enqueue = []
+        for _ in range(10):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            forward()
+            enqueue.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        host_ms = sum(enqueue) / len(enqueue)
+        print(f"  eval forward {name}: DispResNet-50 ({B}, 3, {H}, {W}) fp32 {ms:.3f} ms, "
+              f"{B / ms * 1e3:.1f} img/s; the host enqueues one in {host_ms:.3f} ms; on "
+              f"{card}", flush=True)
+        prof = profile_steps(torch, forward, n=5, top=8, count=("upsample",))
+        print(f"  eval forward {name}: upsample launches a forward "
+              f"{prof['counts']['upsample']:g}", flush=True)
+        if fused and prof["counts"]["upsample"]:
+            raise AssertionError(f"the fused decoder launched upsample kernels: {prof}")
+        out[name] = {"ms": ms, "img_per_s": B / ms * 1e3, "host_enqueue_ms": host_ms,
+                     "profile": prof}
+    return out
+
+
+def kitti_tree(tmp: Path) -> Path:
+    """A synthetic KITTI-raw tree of 2 drives of 8 frames at 375x1242, each
+    with a 100k-point velodyne scan; returns its Eigen-format list."""
+    from supervised_dispnet_tpu_torch.kitti_eval.synthetic import write_kitti_raw
+
+    t0 = time.perf_counter()
+    tree = write_kitti_raw(tmp / "kitti_raw", seed=11, drives=2, frames=8)
+    print(f"  synthetic KITTI-raw tree of 16 frames in {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    return tree
+
+
+def eval_phase(torch, tmp: Path, card: str, tree: Path, ckpt: str, class_ckpt: str) -> dict:
+    """The Eigen-split eval CLI (BASELINE config 2) on the synthetic tree,
+    with the DispResNet-50 checkpoint that the supervised phase wrote, at
+    128x416, batch 8, with median scaling (a model trained 5 steps has no
+    metric scale). On the card, then with ``--device cpu``: each metric
+    within rel 1e-3. The forward is in eval mode (BatchNorm's running
+    statistics) in full fp32 on both, so none of the train step's ~2%
+    gradient spread (ReLU flips under batch statistics) applies; 1e-3 is
+    the train step's gradient tolerance, far above the forward's expected
+    ~1e-5. Then ``--fused-upsample`` on the card, within rel 1e-4 of the
+    unfused card run (the same function to float32 rounding), and
+    ``--classification`` with the classification phase's checkpoint."""
+    card_run = _run_eval(tmp, tree, ckpt, "card")
+    cpu_run = _run_eval(tmp, tree, ckpt, "cpu", "--device", "cpu")
+    fused_run = _run_eval(tmp, tree, ckpt, "card_fused", "--fused-upsample")
+    class_run = _run_eval(tmp, tree, class_ckpt, "card_classification", "--classification")
+    ok_cpu, cpu_rel = _tables_agree(card_run["table"], cpu_run["table"], 1e-3)
+    ok_fused, fused_rel = _tables_agree(card_run["table"], fused_run["table"], 1e-4)
+    pred_cpu, pred_fused = (_max_rel(card_run["preds"], r["preds"]) for r in (cpu_run, fused_run))
+    print(f"  eval: card vs CPU table rel {cpu_rel:.3g} (limit 1e-3), predictions rel "
+          f"{pred_cpu:.3g}; fused vs unfused table rel {fused_rel:.3g} (limit 1e-4), "
+          f"predictions rel {pred_fused:.3g}", flush=True)
+    if not (ok_cpu and ok_fused):
+        raise AssertionError(f"eval tables disagree: card {card_run['table']}, CPU "
+                             f"{cpu_run['table']}, fused {fused_run['table']}")
+    host = host_pipeline_s(tree)
+    print(f"  eval host work for 16 frames: {host}", flush=True)
+    return {"tables": {n: r["table"] for n, r in (("card", card_run), ("cpu", cpu_run),
+                                                  ("card_fused", fused_run),
+                                                  ("card_classification", class_run))},
+            "wall_s": {n: r["wall_s"] for n, r in (("card", card_run), ("cpu", cpu_run),
+                                                   ("card_fused", fused_run),
+                                                   ("card_classification", class_run))},
+            "table_rel": {"card_vs_cpu": cpu_rel, "fused_vs_unfused": fused_rel},
+            "pred_rel": {"card_vs_cpu": pred_cpu, "fused_vs_unfused": pred_fused},
+            "host_16_frames": host,
+            "forward": eval_forward_timing(torch, ckpt, card), "card": card}
+
+
+def inference_phase(torch, tmp: Path, tree: Path, ckpt: str) -> dict:
+    """The folder-inference CLI (BASELINE config 1) on the 8 PNGs of the
+    synthetic tree's first drive, with disparity and depth PNGs and ``.npy``
+    depths, on the card and on the CPU: the depths within rel 1e-3 of each
+    other (the eval phase's limit), and every output written."""
+    from supervised_dispnet_tpu_torch.cli import run_inference
+    from supervised_dispnet_tpu_torch.kitti_eval.synthetic import DATE
+    from supervised_dispnet_tpu_torch.utils.image_io import read_png
+
+    frames = tree.parent / DATE / f"{DATE}_drive_0001_sync" / "image_02" / "data"
+    stems = sorted(f.stem for f in frames.glob("*.png"))
+    walls = {}
+    for name, extra in (("card", []), ("cpu", ["--device", "cpu"])):
+        t0 = time.perf_counter()
+        run_inference.main(["--pretrained", ckpt, "--network", "disp_res_50",
+                            "--dataset-dir", str(frames), "--output-dir",
+                            str(tmp / f"infer_{name}"), "--img-height", str(MAIN_SHAPE[1]),
+                            "--img-width", str(MAIN_SHAPE[2]), "--save-npy", "--output-disp",
+                            "--output-depth", *extra])
+        walls[name] = time.perf_counter() - t0
+    worst = 0.0
+    for stem in stems:
+        for kind in ("disp", "depth"):
+            png = read_png(tmp / "infer_card" / f"{stem}_{kind}.png")
+            if png.shape != (*MAIN_SHAPE[1:], 3):
+                raise AssertionError(f"{stem}_{kind}.png has shape {png.shape}")
+        card, cpu = (np.load(tmp / f"infer_{n}" / f"{stem}_depth.npy") for n in ("card", "cpu"))
+        if card.shape != MAIN_SHAPE[1:] or not np.isfinite(card).all() or (card <= 0).any():
+            raise AssertionError(f"{stem}_depth.npy: shape {card.shape}, range "
+                                 f"[{card.min()}, {card.max()}]")
+        worst = max(worst, float(np.abs(card - cpu).max() / np.abs(cpu).max()))
+    print(f"  inference: {len(stems)} frames, card {walls['card']:.3f} s, CPU "
+          f"{walls['cpu']:.3f} s; depth card vs CPU rel {worst:.3g} (limit 1e-3)", flush=True)
+    if len(stems) != 8 or worst > 1e-3:
+        raise AssertionError(f"inference: {len(stems)} frames, card vs CPU rel {worst}")
+    return {"frames": len(stems), "wall_s": walls, "depth_rel_card_vs_cpu": worst}
 
 
 def inverse_warp_phase(torch, device: str = "cuda") -> dict:
@@ -1665,11 +1892,13 @@ OWN_KERNELS = ("berhu_forward_group_kernel", "berhu_backward_group_kernel",
 CE_KERNEL = "::ce_"
 
 
-def profile_steps(torch, step, n: int = 5, top: int = 12) -> dict:
+def profile_steps(torch, step, n: int = 5, top: int = 12, count: tuple[str, ...] = ()) -> dict:
     """Device time of ``n`` steps by kernel, from ``torch.profiler``: the
     busy share of the steps' wall time, the ``top`` kernels by total device
-    time, and the port's own kernels (their device time alone, where the
-    CUDA-event times of the kernel phase include the host's call)."""
+    time, the port's own kernels (their device time alone, where the
+    CUDA-event times of the kernel phase include the host's call), and for
+    each name fragment in ``count`` the launches a step of the kernels whose
+    names hold it."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1703,8 +1932,11 @@ def profile_steps(torch, step, n: int = 5, top: int = 12) -> dict:
     for r in own:
         print(f"    own kernel: {r['kernel']}: x{r['calls_per_step']:g} a step, "
               f"{r['us_per_call']:.2f} us a call on the device", flush=True)
-    return {"steps": n, "wall_ms_per_step": wall_us / n / 1e3,
-            "busy_ms_per_step": busy_us / n / 1e3, "top": rows, "own_kernels": own}
+    out = {"steps": n, "wall_ms_per_step": wall_us / n / 1e3,
+           "busy_ms_per_step": busy_us / n / 1e3, "top": rows, "own_kernels": own}
+    if count:
+        out["counts"] = {c: sum(e.count for e in kernels if c in e.key) / n for c in count}
+    return out
 
 
 def _grads_agree(g, ref, rtol: float = 1e-3) -> tuple[bool, float]:
@@ -1951,6 +2183,17 @@ def main() -> int:
         ss = selfsup_phase(torch, Path(tmp) / "selfsup", card)
         cl = classification_phase(torch, Path(tmp) / "classification", card)
         cm = classification_phase(torch, Path(tmp) / "multiscale", card, multiscale=True)
+        # the eval and inference paths run none of the port's kernels
+        for mod, attr in kernel_counters():
+            setattr(mod, attr, 0)
+        tree = kitti_tree(Path(tmp))
+        ev = eval_phase(torch, Path(tmp), card, tree, sl["checkpoint"], cl["checkpoint"])
+        inf = inference_phase(torch, Path(tmp), tree, sl["checkpoint"])
+        torch.cuda.synchronize()
+        eval_launches = {attr: getattr(mod, attr) for mod, attr in kernel_counters()}
+        if any(eval_launches.values()):
+            raise AssertionError(f"the eval and inference paths launched kernels: "
+                                 f"{eval_launches}")
     iw = inverse_warp_phase(torch)
     xc = {**cross_check(torch), **selfsup_cross_check(torch)}
 
@@ -1979,6 +2222,7 @@ def main() -> int:
                         ("classification_dispresnet50", cl))},
         "classification_multiscale": {"launches": cm["launches"], "val": cm["val"]},
         "inverse_warp": iw, "cross_check": xc}))
+    print(json.dumps({"eval": ev, "inference": inf, "eval_kernel_launches": eval_launches}))
     print(json.dumps({"kernels": list(kernels.values())}))
     print(card)
     print(json.dumps({"ok": True, "device": {

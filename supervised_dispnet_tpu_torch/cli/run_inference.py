@@ -1,0 +1,132 @@
+"""Folder inference CLI of the port, with the JAX CLI's flag spellings
+(``supervised_dispnet_tpu/cli/run_inference.py``; reference
+``run_inference.py``): a folder of images -> disparity / depth PNGs and
+optional ``.npy`` depth dumps.
+
+  python -m supervised_dispnet_tpu_torch.cli.run_inference \\
+      --pretrained dispnet_model_best.pth.tar --network disp_res_50 \\
+      --dataset-dir frames/ --output-dir out/ --output-depth --save-npy
+
+PNGs are decoded by the port's own codec; other ``--img-exts`` files need
+``imageio``, and without it the CLI raises before the first batch, naming
+them. Runs on the card unless ``--device cpu`` is given.
+"""
+
+from __future__ import annotations
+
+import argparse
+from pathlib import Path
+
+import numpy as np
+
+from supervised_dispnet_tpu_torch.cli import parse_args_or_raise
+from supervised_dispnet_tpu_torch.cli.test_disp import LATER_FLAGS, LATER_WHERE
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        description="Run disparity inference on a folder of images (PyTorch port, CUDA)",
+        formatter_class=argparse.ArgumentDefaultsHelpFormatter)
+    p.add_argument("--pretrained", required=True,
+                   help=".pth.tar (the port's Trainer or the reference)")
+    p.add_argument("--network", default="dispnet")
+    p.add_argument("--dataset-dir", required=True)
+    p.add_argument("--output-dir", required=True)
+    p.add_argument("--img-height", type=int, default=128)
+    p.add_argument("--img-width", type=int, default=416)
+    p.add_argument("--output-disp", action="store_true")
+    p.add_argument("--output-depth", action="store_true")
+    p.add_argument("--save-npy", action="store_true")
+    p.add_argument("--img-exts", nargs="+", default=["png", "jpg", "bmp"])
+    p.add_argument("--fused-upsample", action="store_true",
+                   help="disp_res*: each decoder stage's 2x upsample composed "
+                        "into the conv after it (ops/fused_upconv.py; exact); "
+                        "height and width divisible by 32")
+    p.add_argument("--imagenet-normalization", action="store_true")
+    p.add_argument("--batch-size", type=int, default=8, help="images per forward")
+    p.add_argument("--device", default="cuda",
+                   help="torch device; 'cpu' runs on the CPU")
+    return p
+
+
+def image_reader(files: list[Path]):
+    """A function path -> (H, W, 3) uint8 RGB, as ``cv2.imread``'s colour
+    mode gives it (grey replicated, alpha dropped). PNGs go through the
+    port's decoder, other files through ``imageio``; without ``imageio``
+    installed, non-PNG files raise here, before any is read."""
+    from supervised_dispnet_tpu_torch.utils.image_io import read_png
+
+    others = [f for f in files if f.suffix.lower() != ".png"]
+    imread = None
+    if others:
+        try:
+            import imageio.v2 as imageio
+        except ImportError:
+            names = ", ".join(str(f) for f in others[:5])
+            raise RuntimeError(
+                f"{len(others)} files are not PNG and imageio is not installed to "
+                f"decode them: {names}{' ...' if len(others) > 5 else ''}") from None
+        imread = imageio.imread
+
+    def read(f: Path) -> np.ndarray:
+        img = read_png(f) if f.suffix.lower() == ".png" else np.asarray(imread(f))
+        if img.ndim == 2:
+            img = img[:, :, None]
+        if img.shape[2] in (1, 2):  # grey, grey + alpha
+            img = np.repeat(img[:, :, :1], 3, axis=2)
+        return img[:, :, :3]
+
+    return read
+
+
+def main(argv: list[str] | None = None) -> None:
+    args = parse_args_or_raise(build_parser(), argv, LATER_FLAGS, LATER_WHERE)
+    if not (args.output_disp or args.output_depth or args.save_npy):
+        args.output_depth = True
+
+    import torch
+
+    from supervised_dispnet_tpu_torch.cli.test_disp import load_model, norm_stats
+    from supervised_dispnet_tpu_torch.data.augment import normalize_images
+    from supervised_dispnet_tpu_torch.data.image_resize import resize_area
+    from supervised_dispnet_tpu_torch.utils.device import resolve_device, set_fp32_math
+    from supervised_dispnet_tpu_torch.utils.viz import save_depth_png
+
+    dev = resolve_device(args.device)
+    set_fp32_math()
+    model = load_model(args.pretrained, args.network,
+                       fused_upsample=args.fused_upsample, device=dev)
+    mean, std = norm_stats(args.imagenet_normalization)
+
+    src = Path(args.dataset_dir)
+    dst = Path(args.output_dir)
+    dst.mkdir(parents=True, exist_ok=True)
+    files = sorted(f for ext in args.img_exts for f in src.glob(f"*.{ext}"))
+    print(f"{len(files)} files to test")
+    if not files:
+        return
+    read = image_reader(files)
+
+    def load(f: Path) -> np.ndarray:
+        img = read(f).astype(np.float32) / 255.0
+        return resize_area(img, args.img_height, args.img_width)
+
+    B = max(1, args.batch_size)
+    for c0 in range(0, len(files), B):
+        chunk = files[c0:c0 + B]
+        x = torch.from_numpy(np.stack([load(f) for f in chunk])).to(dev)
+        with torch.inference_mode():
+            disps = model(normalize_images(x, mean, std))[0][..., 0].cpu().numpy()
+        for f, disp in zip(chunk, disps):
+            depth = 1.0 / np.maximum(disp, 1e-6)
+            if args.output_disp:
+                save_depth_png(dst / f"{f.stem}_disp.png", disp)
+            if args.output_depth:
+                save_depth_png(dst / f"{f.stem}_depth.png", depth, max_value=80.0)
+            if args.save_npy:
+                np.save(dst / f"{f.stem}_depth.npy", depth)
+    print(f"wrote outputs to {dst}")
+
+
+if __name__ == "__main__":
+    main()

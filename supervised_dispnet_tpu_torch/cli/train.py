@@ -20,11 +20,12 @@ import argparse
 import datetime
 from pathlib import Path
 
+from supervised_dispnet_tpu_torch.cli import parse_args_or_raise
+
 # JAX CLI flags of features that later slices port (see ROADMAP.md)
 _LATER_FLAGS = frozenset((
     "--ema-decay", "--imagenet-normalization", "--hue", "--half-res-photo",
-    "--stochastic-photo", "--bf16", "--remat",
-    "--fused-upsample", "--qat", "--debug-nans", "--loader",
+    "--stochastic-photo", "--bf16", "--remat", "--qat", "--debug-nans", "--loader",
     "--steps-per-dispatch", "--accum-steps", "--spatial-shards",
     "--profile-steps", "-f", "--training-output-freq", "--pretrained-disp",
     "-j", "--workers",
@@ -80,6 +81,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--multiscale-classification", action="store_true",
                    help="supervise bin logits at all 4 decoder scales "
                         "(classification head)")
+    p.add_argument("--fused-upsample", action="store_true",
+                   help="disp_res*: each decoder stage's 2x upsample composed "
+                        "into the conv after it (ops/fused_upconv.py; exact, "
+                        "same state dict); height and width divisible by 32")
     p.add_argument("--max-depth", type=float, default=80.0)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--img-height", type=int, default=128,
@@ -101,15 +106,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
-    parser = build_parser()
-    args, unknown = parser.parse_known_args(argv)
-    for tok in unknown:
-        flag = tok.split("=", 1)[0]
-        if flag in _LATER_FLAGS:
-            raise NotImplementedError(f"{flag} is not ported yet; see ROADMAP.md")
-    if unknown:
-        parser.error(f"unrecognized arguments: {' '.join(unknown)}")
-    return args
+    return parse_args_or_raise(build_parser(), argv, _LATER_FLAGS)
 
 
 def main(argv: list[str] | None = None):
@@ -137,7 +134,8 @@ def main(argv: list[str] | None = None):
     head = "classification" if args.loss == "classification" else "disp"
     model = get_disp_net(args.network, head=head, num_bins=args.num_bins,
                          multiscale_classification=args.multiscale_classification,
-                         seed=args.seed, device=args.device)
+                         fused_upsample=args.fused_upsample, seed=args.seed,
+                         device=args.device)
     pose_model = None
     if args.loss == "selfsup":
         # a stream of its own, so the disp net's weights do not depend on it

@@ -132,9 +132,11 @@ def augment_batch(
 
 
 def normalize_images(imgs: torch.Tensor,
-                     mean: tuple[float, float, float] = HALF_MEAN,
-                     std: tuple[float, float, float] = HALF_STD) -> torch.Tensor:
-    """(x - mean) / std over the last (channel) axis."""
-    m = torch.tensor(mean, dtype=torch.float32, device=imgs.device)
-    s = torch.tensor(std, dtype=torch.float32, device=imgs.device)
+                     mean: tuple[float, float, float] | torch.Tensor = HALF_MEAN,
+                     std: tuple[float, float, float] | torch.Tensor = HALF_STD) -> torch.Tensor:
+    """(x - mean) / std over the last (channel) axis. ``mean`` and ``std``
+    may be float32 tensors on ``imgs``' device already, which spares a copy
+    from the host (on the card, one that waits for its queue)."""
+    m = torch.as_tensor(mean, dtype=torch.float32, device=imgs.device)
+    s = torch.as_tensor(std, dtype=torch.float32, device=imgs.device)
     return (imgs - m) / s

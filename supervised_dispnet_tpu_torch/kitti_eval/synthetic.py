@@ -1,0 +1,71 @@
+"""A synthetic KITTI-raw tree, made from a seed, for the eval CLI's tests and
+smoke runs where no KITTI data is at hand: the raw layout
+(``<date>/calib_{cam_to_cam,velo_to_cam}.txt``,
+``<date>/<drive>/image_02/data/<frame>.png``,
+``<date>/<drive>/velodyne_points/data/<frame>.bin``) and an Eigen-format list
+of its frames.
+
+Calibration is KITTI-like (focal length 721.5 px at 1242 px width, principal
+point at the centre, the velodyne's x forward, y left, z up). Each scan's
+points lie in front of the camera, 3-80 m deep, and project into the lower
+65% of the frame, as the LiDAR covers the road scene there. The frames are a
+smooth gradient plus noise, written with the Paeth row filter, the costliest
+for the decoder.
+"""
+
+from __future__ import annotations
+
+from pathlib import Path
+
+import numpy as np
+
+from supervised_dispnet_tpu_torch.utils.image_io import write_png
+
+DATE = "2011_09_26"
+# velodyne -> camera axes: x_cam = -y_velo, y_cam = -z_velo, z_cam = x_velo
+VELO_TO_CAM_R = np.array([[0, -1, 0], [0, 0, -1], [1, 0, 0]], dtype=float)
+
+
+def write_kitti_raw(root: str | Path, seed: int = 0, drives: int = 2, frames: int = 8,
+                    height: int = 375, width: int = 1242,
+                    points: int = 100_000) -> Path:
+    """Write ``drives`` x ``frames`` frames of (height, width) RGB with one
+    velodyne scan of ``points`` points each under ``root``; returns the path
+    of the Eigen-format list of them (``root / "eigen_test_files.txt"``)."""
+    root = Path(root)
+    rng = np.random.default_rng(seed)
+    date_dir = root / DATE
+    date_dir.mkdir(parents=True, exist_ok=True)
+    f = 721.5377 * width / 1242.0
+    cx, cy = width / 2, height / 2
+    P = np.array([[f, 0, cx, 0], [0, f, cy, 0], [0, 0, 1, 0]])
+    (date_dir / "calib_cam_to_cam.txt").write_text(
+        "calib_time: 09-Jan-2012 13:57:47\n"
+        f"R_rect_00: {' '.join(map(str, np.eye(3).ravel()))}\n"
+        f"P_rect_02: {' '.join(map(str, P.ravel()))}\n")
+    (date_dir / "calib_velo_to_cam.txt").write_text(
+        f"R: {' '.join(map(str, VELO_TO_CAM_R.ravel()))}\nT: 0 0 0\n")
+
+    yy, xx = np.mgrid[:height, :width]
+    lines = []
+    for d in range(1, drives + 1):
+        drive = f"{DATE}_drive_{d:04d}_sync"
+        img_dir = date_dir / drive / "image_02" / "data"
+        velo_dir = date_dir / drive / "velodyne_points" / "data"
+        img_dir.mkdir(parents=True, exist_ok=True)
+        velo_dir.mkdir(parents=True, exist_ok=True)
+        for i in range(frames):
+            base = np.stack([xx * (255 / width), yy * (255 / height),
+                             (xx + yy + 40 * i) % 256], axis=-1)
+            img = np.clip(base + rng.normal(0, 12, base.shape), 0, 255).astype(np.uint8)
+            write_png(img_dir / f"{i:010d}.png", img, filter_type=4)
+            z = rng.uniform(3.0, 80.0, points)
+            u = rng.uniform(0, width, points)
+            v = rng.uniform(0.35 * height, height, points)
+            scan = np.stack([z, -(u - cx) * z / f, -(v - cy) * z / f,
+                             rng.uniform(0, 1, points)], axis=1)
+            scan.astype(np.float32).tofile(velo_dir / f"{i:010d}.bin")
+            lines.append(f"{DATE}/{drive}/image_02/data/{i:010d}.png")
+    list_file = root / "eigen_test_files.txt"
+    list_file.write_text("\n".join(lines) + "\n")
+    return list_file

@@ -1,12 +1,15 @@
 """DispResNet: ResNet-18/50 encoder + upsample-conv decoder with skip concat
 and four sigmoid disparity heads, or the depth-as-classification bin-logit
-head. The port of ``supervised_dispnet_tpu/models/dispresnet.py`` (unfused
-decoder).
+head. The port of ``supervised_dispnet_tpu/models/dispresnet.py``.
 
 Takes (B, H, W, 3). The disparity head returns [disp1, disp2, disp3, disp4],
 each (B, h, w, 1), finest first, as the JAX model does; the classification
 head returns (B, H, W, num_bins) logits, or with
-``multiscale_classification`` a list of four, finest first. NCHW inside: the
+``multiscale_classification`` a list of four, finest first. With
+``fused_upsample`` each decoder stage's (2x upsample -> concat skip -> conv)
+runs as ``ops/fused_upconv.py::upconv2x_fused`` of the half-resolution
+input plus a 3x3 conv of the skip, from the same weights: the upsampled
+tensor never exists, and the state dict is the unfused model's. NCHW inside: the
 logits are the ``permute(0, 2, 3, 1)`` view of the conv's NCHW output, not a
 copy, which the CE kernels read in place. Module names follow the reference
 state dict (``encoder.*``, ``upconv{i}.0``, ``iconv{i}.0``,
@@ -22,6 +25,7 @@ from torch import nn
 
 from supervised_dispnet_tpu_torch.models.common import DispHead, xavier_uniform_
 from supervised_dispnet_tpu_torch.models.resnet import ResNetEncoder
+from supervised_dispnet_tpu_torch.ops.fused_upconv import upconv2x_fused
 from supervised_dispnet_tpu_torch.ops.resize import interpolate_bilinear
 
 DEC_PLANES = (16, 32, 64, 128, 256)
@@ -41,10 +45,6 @@ class DispResNet(nn.Module):
         super().__init__()
         if head not in ("disp", "classification"):
             raise ValueError(f"unknown DispResNet head {head!r}")
-        if fused_upsample:
-            raise NotImplementedError(
-                "DispResNet fused_upsample=True is not ported yet (fused "
-                "decoder slice; see ROADMAP.md)")
         self.encoder = ResNetEncoder(encoder_depth)
         enc_ch = self.encoder.feature_channels
         for i in range(4, -1, -1):
@@ -55,6 +55,7 @@ class DispResNet(nn.Module):
             self.add_module(f"iconv{i}", nn.Sequential(
                 nn.Conv2d(cat_ch, DEC_PLANES[i], 3, padding=1)))
         self.head = head
+        self.fused_upsample = fused_upsample
         self.multiscale_classification = multiscale_classification
         if head == "disp":
             for s in range(1, 5):
@@ -80,13 +81,16 @@ class DispResNet(nn.Module):
         h = enc[-1]
         for i in range(4, -1, -1):
             h = F.elu(getattr(self, f"upconv{i}")(h))
-            if i > 0:
-                skip = enc[i - 1]
-                h = interpolate_bilinear(h, skip.shape[2], skip.shape[3])
-                h = torch.cat([h, skip], dim=1)
+            skip = enc[i - 1] if i > 0 else None
+            if self.fused_upsample:
+                h = F.elu(self._fused_iconv(i, h, skip, (H, W)))
             else:
-                h = interpolate_bilinear(h, H, W)
-            h = F.elu(getattr(self, f"iconv{i}")(h))
+                if skip is not None:
+                    h = interpolate_bilinear(h, skip.shape[2], skip.shape[3])
+                    h = torch.cat([h, skip], dim=1)
+                else:
+                    h = interpolate_bilinear(h, H, W)
+                h = F.elu(getattr(self, f"iconv{i}")(h))
             feats[i] = h
         if self.head == "classification":
             logits = [getattr(self, _class_head_name(s))(feats[s].to(torch.float32))
@@ -95,3 +99,21 @@ class DispResNet(nn.Module):
             return logits if self.multiscale_classification else logits[0]
         return [getattr(self, f"predict_disp{s + 1}")(feats[s]).permute(0, 2, 3, 1)
                 for s in range(4)]
+
+    def _fused_iconv(self, i: int, h: torch.Tensor, skip: torch.Tensor | None,
+                     out_hw: tuple[int, int]) -> torch.Tensor:
+        """``iconv{i}`` of (2x upsample of ``h``, concat ``skip``) before its
+        ELU, without the upsample: the weight's input channels are split as
+        the concat lays them out, ``h``'s first."""
+        conv = getattr(self, f"iconv{i}")[0]
+        target = tuple(skip.shape[2:]) if skip is not None else out_hw
+        if target != (2 * h.shape[2], 2 * h.shape[3]):
+            raise ValueError(
+                "fused_upsample needs an exact 2x stage geometry (input height "
+                f"and width divisible by 32); decoder stage {i} upsamples "
+                f"{tuple(h.shape[2:])} to {target}")
+        ch = h.shape[1]
+        y = upconv2x_fused(h, conv.weight[:, :ch])
+        if skip is None:
+            return y + conv.bias[:, None, None]
+        return y + F.conv2d(skip, conv.weight[:, ch:], conv.bias, padding=1)

@@ -139,10 +139,11 @@ def test_resize_bilinear_refuses_downsampling():
         resize_bilinear(torch.zeros(1, 8, 8, 1), 4, 8)
 
 
-@pytest.mark.parametrize("kw", [{"fused_upsample": True}])
+@pytest.mark.parametrize("kw", [{"name": "fcrn"}])
 def test_unported_variants_raise(kw):
+    """A network still to port raises, naming the roadmap."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DispResNet(18, **kw)
+        get_disp_net(**kw, device="cpu")
 
 
 def _perturb_biases(tree, rng):

@@ -14,6 +14,8 @@ import pytest
 import torch
 
 import supervised_dispnet_tpu_torch
+from supervised_dispnet_tpu_torch.cli import run_inference as run_inference_cli
+from supervised_dispnet_tpu_torch.cli import test_disp as test_disp_cli
 from supervised_dispnet_tpu_torch.cli import train as train_cli
 from supervised_dispnet_tpu_torch.data.packed import write_split
 from supervised_dispnet_tpu_torch.models import DispNetS, DispResNet, PoseExpNet, get_disp_net
@@ -27,6 +29,10 @@ from supervised_dispnet_tpu_torch.utils.device import set_fp32_math
 REPO = Path(__file__).resolve().parents[1]
 PKG = Path(supervised_dispnet_tpu_torch.__file__).parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "supervised_dispnet_tpu")
+# image libraries the JAX package reads, resizes and draws with; the port
+# has its own PNG codec and resizes, and matplotlib stays an optional import
+# inside ``utils/viz.py::tensor2array``
+IMAGE_LIBS = ("cv2", "imageio", "PIL", "matplotlib")
 
 
 def _port_modules() -> list[str]:
@@ -35,14 +41,14 @@ def _port_modules() -> list[str]:
         for p in PKG.rglob("*.py"))
 
 
-def _forbidden(name: str) -> bool:
-    return any(name == f or name.startswith(f + ".") for f in FORBIDDEN)
+def _forbidden(name: str, forbidden: tuple[str, ...] = FORBIDDEN) -> bool:
+    return any(name == f or name.startswith(f + ".") for f in forbidden)
 
 
-def test_importing_the_port_leaves_jax_and_the_jax_package_out():
-    """Every module of the port, and ``chip_smoke``, imported in a fresh
-    interpreter: neither ``jax`` nor ``supervised_dispnet_tpu`` (by exact
-    name or with a dot after it) appears in ``sys.modules``."""
+@pytest.fixture(scope="module")
+def fresh_import() -> list[str]:
+    """``sys.modules`` after every module of the port, and ``chip_smoke``,
+    is imported in a fresh interpreter."""
     mods = _port_modules() + ["chip_smoke"]
     code = ("import importlib, json, sys\n"
             f"for m in {mods!r}:\n"
@@ -52,7 +58,40 @@ def test_importing_the_port_leaves_jax_and_the_jax_package_out():
                          capture_output=True, text=True, timeout=300).stdout
     loaded = json.loads(out.splitlines()[-1])
     assert "supervised_dispnet_tpu_torch.training.trainer" in loaded
-    assert [m for m in loaded if _forbidden(m)] == []
+    assert "supervised_dispnet_tpu_torch.cli.test_disp" in loaded
+    return loaded
+
+
+def test_importing_the_port_leaves_jax_and_the_jax_package_out(fresh_import):
+    """Neither ``jax`` nor ``supervised_dispnet_tpu`` (by exact name or with
+    a dot after it) appears in ``sys.modules``."""
+    assert [m for m in fresh_import if _forbidden(m)] == []
+
+
+def _module_level_imports(tree: ast.AST):
+    """Import statements that run when the module is imported: everywhere
+    but inside function bodies."""
+    for node in ast.iter_child_nodes(tree):
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.Lambda)):
+            continue
+        if isinstance(node, (ast.Import, ast.ImportFrom)):
+            yield node
+        yield from _module_level_imports(node)
+
+
+def test_no_port_module_imports_image_libraries_at_module_level(fresh_import):
+    """Neither the fresh interpreter's ``sys.modules`` nor any module-level
+    import of a port source, or of ``chip_smoke.py``, names ``cv2``,
+    ``imageio``, ``PIL`` or ``matplotlib``."""
+    assert [m for m in fresh_import if _forbidden(m, IMAGE_LIBS)] == []
+    bad = []
+    for f in sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]:
+        for node in _module_level_imports(ast.parse(f.read_text(), str(f))):
+            names = ([a.name for a in node.names] if isinstance(node, ast.Import)
+                     else [node.module or ""])
+            bad += [f"{f.relative_to(REPO)}: {n}" for n in names
+                    if _forbidden(n, IMAGE_LIBS)]
+    assert bad == []
 
 
 def test_no_source_of_the_port_imports_jax_or_the_jax_package():
@@ -77,6 +116,13 @@ def test_entry_points_need_the_card_unless_asked_for_the_cpu(tmp_path):
         Trainer(TrainerConfig(), DispResNet(18))
     with pytest.raises(RuntimeError, match="--device cpu"):
         train_cli.main([str(tmp_path), "--network", "disp_res_18"])
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        test_disp_cli.main(["--pretrained-dispnet", str(tmp_path / "x.pth.tar"),
+                            "--dataset-dir", str(tmp_path),
+                            "--dataset-list", str(tmp_path / "list.txt")])
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        run_inference_cli.main(["--pretrained", str(tmp_path / "x.pth.tar"),
+                                "--dataset-dir", str(tmp_path), "--output-dir", str(tmp_path)])
     assert get_disp_net("disp_res_18", device="cpu").encoder.conv1.weight.device.type == "cpu"
 
 
@@ -102,14 +148,22 @@ def test_card_math_is_full_fp32_unless_tf32_is_asked_for(tf32_flags):
     assert tf32_flags() == (False, False)
 
 
-@pytest.mark.parametrize("argv,err", [
-    (["--bf16"], "--bf16"), (["--fused-upsample"], "--fused-upsample"),
-    (["--network", "disp_vgg_bn"], "disp_vgg_bn"),
-    (["--loss", "selfsup", "--half-res-photo"], "--half-res-photo"),
+@pytest.mark.parametrize("cli,argv,err", [
+    ("train", ["--bf16"], "--bf16"), ("train", ["--qat"], "--qat"),
+    ("train", ["--network", "disp_vgg_bn"], "disp_vgg_bn"),
+    ("train", ["--loss", "selfsup", "--half-res-photo"], "--half-res-photo"),
+    ("test_disp", ["--int8"], "--int8"),
 ])
-def test_unported_cli_choices_raise(tmp_path, argv, err):
+def test_unported_cli_choices_raise(tmp_path, cli, argv, err):
+    if cli == "train":
+        main = train_cli.main
+        argv = [str(tmp_path), "--network", "disp_res_18", *argv]
+    else:
+        main = test_disp_cli.main
+        argv = ["--pretrained-dispnet", str(tmp_path / "x.pth.tar"), "--dataset-dir",
+                str(tmp_path), "--dataset-list", str(tmp_path / "list.txt"), *argv]
     with pytest.raises(NotImplementedError, match=err):
-        train_cli.main([str(tmp_path), "--device", "cpu", "--network", "disp_res_18", *argv])
+        main([*argv, "--device", "cpu"])
 
 
 def _packed_split(root: Path, H: int, W: int, n_train: int = 6, n_val: int = 4,
@@ -157,6 +211,30 @@ def test_cli_trains_two_steps_on_the_cpu_and_writes_logs_and_checkpoint(tmp_path
     disp = trainer.predict(np.random.default_rng(1).uniform(size=(2, H, W, 3)))
     assert disp.shape == (2, H, W)
     assert ((disp >= 0.01) & (disp <= 10.01)).all()
+
+
+def test_cli_trains_the_fused_decoder_two_steps_on_the_cpu(tmp_path):
+    """``--fused-upsample`` on ``disp_res_18`` at 64x96: two steps with finite
+    losses, and a checkpoint that the unfused model loads ``strict=True``
+    and that predicts what the fused one does."""
+    H, W = 64, 96
+    _packed_split(tmp_path / "data", H, W)
+    trainer = train_cli.main([
+        str(tmp_path / "data"), "--network", "disp_res_18", "--loss", "berhu", "-b", "2",
+        "--epoch-size", "2", "--epochs", "1", "--fused-upsample", "--device", "cpu",
+        "--checkpoints-dir", str(tmp_path / "ck"), "--name", "t"])
+    assert trainer.step == 2 and trainer.model.fused_upsample
+    run = Path(trainer.cfg.save_path)
+    events = [json.loads(x) for x in (run / "metrics.jsonl").read_text().splitlines()]
+    losses = [e["loss"] for e in events if e["event"] == "train_iter"]
+    assert len(losses) == 2 and all(np.isfinite(losses))
+    unfused = DispResNet(18)
+    unfused.load_state_dict(torch.load(run / CHECKPOINT_NAME, weights_only=True)["state_dict"],
+                            strict=True)
+    x = torch.tensor(np.random.default_rng(2).uniform(-1, 1, (1, H, W, 3)), dtype=torch.float32)
+    with torch.no_grad():
+        np.testing.assert_allclose(unfused.eval()(x)[0].numpy(),
+                                   trainer.model.eval()(x)[0].numpy(), rtol=1e-5, atol=1e-6)
 
 
 def test_cli_trains_selfsup_two_steps_on_the_cpu_without_gt(tmp_path, capsys):
