@@ -78,6 +78,23 @@ Phases; any failure exits non-zero:
        forward's time at (8, 128, 416), unfused and fused, with a profile
        (the fused decoder launches no upsample kernel), and the CLI's wall
        time beside the host's decode, GT projection and resize time;
+     - odometry pose evaluation through ``cli.test_pose.main`` with the
+       self-supervised run's pose checkpoint, on a synthetic sequence of 40
+       frames at 375x1242 that it writes, card against CPU (ATE / RE and
+       pose vectors within rel 1e-3), with the PoseExpNet forward's time
+       at (32, 9, 128, 416); then online serving of the supervised run's
+       DispResNet-50 through ``serving.DepthService`` (buckets 1, 8, 64,
+       fused and unfused: card against CPU, fused against unfused, 64
+       requests from 8 threads, latency at one request in flight and img/s
+       at buckets 8 and 64) and through ``cli/serve.py`` in a subprocess
+       on a free localhost port (PNG posts and a non-PNG body). These two
+       paths launch none of the port's kernels, and the counts show it;
+     - VGG-BN and FCRN, supervised BerHu training through ``cli.train.main``
+       at 128x416, B=4, 3 steps each (1 grouped forward and 1 grouped
+       backward BerHu launch a step, of 4 problems and of 1), their step
+       time and profile, their eval forward at (8, 3, 128, 416) card
+       against CPU (VGG-BN fused against unfused too) with its time and
+       profile, and FCRN's folder inference, card against CPU;
      - ``ops.warp.inverse_warp`` with its default ``diff_img=True`` and a
        backward into the image, depth and pose (the image+coordinate
        backward's path), against the plain sampler on the card;
@@ -88,10 +105,12 @@ Phases; any failure exits non-zero:
   4. cross-checks, one train step from identical weights on one batch, TF32
      off: each path (BerHu, classification single- and multi-scale,
      self-supervised) on the card with its kernels against the card with
-     the plain versions, and against the CPU with the plain versions;
+     the plain versions, and against the CPU with the plain versions; VGG-BN
+     and FCRN BerHu steps against the CPU;
   5. a JSON line of the slice and cross-check numbers, a JSON line of the
-     eval and inference numbers, a JSON line of kernel numbers, the card
-     line, and as the last line
+     eval and inference numbers, a JSON line of the pose, serving and
+     network numbers, a JSON line of kernel numbers, the card line, and as
+     the last line
      ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX: the machine with the card has none.
@@ -1552,6 +1571,7 @@ def selfsup_phase(torch, tmp: Path, card: str, device: str = "cuda") -> dict:
         if not (Path(trainer.cfg.save_path) / name).is_file():
             raise AssertionError(f"no {name} written")
     return {"launches": launches, "train_losses": losses, "val": val,
+            "pose_checkpoint": str(Path(trainer.cfg.save_path) / "exp_pose_checkpoint.pth.tar"),
             **steady_step(torch, trainer, "DispNetS + PoseExpNet selfsup", card)}
 
 
@@ -1827,6 +1847,379 @@ def inference_phase(torch, tmp: Path, tree: Path, ckpt: str) -> dict:
     return {"frames": len(stems), "wall_s": walls, "depth_rel_card_vs_cpu": worst}
 
 
+POSE_BATCH = 32  # the pose CLI's default --batch-size
+
+
+def _rel(a, b) -> float:
+    """max |a - b| over max |b|."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+
+
+def pose_phase(torch, tmp: Path, card: str, pose_ckpt: str) -> dict:
+    """Odometry pose evaluation (A4) through ``cli.test_pose.main`` as a
+    user runs it, with the self-supervised run's ``exp_pose`` checkpoint, on
+    a synthetic sequence of 40 frames at 375x1242 read at 128x416, batch 32:
+    on the card and with ``--device cpu``. ATE / RE means and stds within
+    rel 1e-3 (the eval phase's limit), and the network's pose vectors too.
+    Then the host's decode and resize seconds for the 40 frames, and the
+    PoseExpNet forward's ms a batch at (32, 3, 128, 416) from CUDA events."""
+    from supervised_dispnet_tpu_torch.cli import test_pose
+    from supervised_dispnet_tpu_torch.data.image_resize import resize_area_uint8
+    from supervised_dispnet_tpu_torch.kitti_eval.synthetic import write_kitti_odometry
+    from supervised_dispnet_tpu_torch.utils.image_io import as_rgb, read_png
+
+    _, H, W = MAIN_SHAPE
+    t0 = time.perf_counter()
+    root = write_kitti_odometry(tmp / "odometry", seed=13, frames=40)
+    print(f"  synthetic odometry sequence of 40 frames in {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    runs = {}
+    for name, extra in (("card", []), ("cpu", ["--device", "cpu"])):
+        t0 = time.perf_counter()
+        res = test_pose.main(["--pretrained-posenet", pose_ckpt, "--dataset-dir", str(root),
+                              "--sequences", "09", "--img-height", str(H), "--img-width",
+                              str(W), "--batch-size", str(POSE_BATCH), "--output-dir",
+                              str(tmp / f"pose_{name}"), *extra])
+        runs[name] = {"results": res, "wall_s": time.perf_counter() - t0,
+                      "vectors": np.load(tmp / f"pose_{name}" / "pose_vectors.npy")}
+    card_r, cpu_r = runs["card"]["results"], runs["cpu"]["results"]
+    metric_rel = {k: abs(card_r[k] - cpu_r[k]) / max(abs(cpu_r[k]), 1e-30)
+                  for k in ("ate_mean", "ate_std", "re_mean", "re_std")}
+    vec_rel = _rel(runs["card"]["vectors"], runs["cpu"]["vectors"])
+    print(f"  pose: {card_r['n_snippets']:g} snippets; ATE {card_r['ate_mean']:.6f} RE "
+          f"{card_r['re_mean']:.6f}; card vs CPU metrics rel {max(metric_rel.values()):.3g}, "
+          f"pose vectors rel {vec_rel:.3g} (limit 1e-3); CLI {runs['card']['wall_s']:.3f} s "
+          f"on the card, {runs['cpu']['wall_s']:.3f} s on the CPU", flush=True)
+    if (card_r["n_snippets"] != 38 or max(metric_rel.values()) > 1e-3 or vec_rel > 1e-3
+            or not all(math.isfinite(v) for v in card_r.values())):
+        raise AssertionError(f"pose: card {card_r}, CPU {cpu_r}, vectors rel {vec_rel}")
+
+    host = {"decode_s": 0.0, "resize_s": 0.0}
+    for f in sorted((root / "sequences" / "09" / "image_2").glob("*.png")):
+        t0 = time.perf_counter()
+        img = as_rgb(read_png(f))
+        t1 = time.perf_counter()
+        resize_area_uint8(img, H, W)
+        host["decode_s"] += t1 - t0
+        host["resize_s"] += time.perf_counter() - t1
+    model = test_pose.load_pose_net(pose_ckpt, 2, "cuda")
+    gen = torch.Generator().manual_seed(14)
+    tgt, *refs = ((torch.rand(POSE_BATCH, H, W, 3, generator=gen) * 2 - 1).cuda()
+                  for _ in range(3))
+
+    def forward():
+        with torch.inference_mode():
+            return model(tgt, refs)
+
+    ms = cuda_ms(torch, forward, reps=50, warmup=5)
+    print(f"  pose host work for 40 frames: {host}; PoseExpNet forward ({POSE_BATCH}, 9, {H}, "
+          f"{W}) fp32 {ms:.3f} ms a batch, {POSE_BATCH / ms * 1e3:.1f} snippets/s, on {card}",
+          flush=True)
+    return {"results": {n: r["results"] for n, r in runs.items()},
+            "wall_s": {n: r["wall_s"] for n, r in runs.items()},
+            "metric_rel_card_vs_cpu": metric_rel, "vector_rel_card_vs_cpu": vec_rel,
+            "host_40_frames": host, "forward_ms": ms, "card": card}
+
+
+def _serve_latency(svc, imgs, n: int = 40) -> dict:
+    """Host ms of ``n`` requests, one in flight at a time: submit, then
+    ``result()``."""
+    lat = []
+    with svc:
+        for i in range(n):
+            t0 = time.perf_counter()
+            svc.submit(imgs[i % len(imgs)]).result(timeout=60)
+            lat.append((time.perf_counter() - t0) * 1e3)
+    lat.sort()
+    return {"mean_ms": sum(lat) / n, "p50_ms": lat[n // 2], "p90_ms": lat[int(n * 0.9)],
+            "max_ms": lat[-1]}
+
+
+def _http(url: str, body: bytes | None = None, timeout: float = 60.0):
+    """(status, body) of a GET, or a POST of ``body``; HTTP errors included."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(url, data=body, method="POST" if body is not None else "GET")
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def http_server_check(tmp: Path, ckpt: str, svc, frames: list) -> dict:
+    """``cli/serve.py`` in a subprocess on a free localhost port, with the
+    service's checkpoint and defaults: ``GET /healthz``, a ``POST /depth``
+    of each PNG in ``frames`` (the ``.npy`` body against ``svc.predict`` of
+    the frame area-resized as the server does, within rel 1e-4: the same
+    function in another process, batched otherwise), and a body that is
+    not a PNG, answered 400. The subprocess is killed at the end, whatever
+    happened."""
+    from supervised_dispnet_tpu_torch.data.image_resize import resize_area_uint8
+    from supervised_dispnet_tpu_torch.utils.image_io import as_rgb, read_png
+
+    _, H, W = MAIN_SHAPE
+    port = _free_port()
+    url = f"http://127.0.0.1:{port}"
+    log = tmp / "serve.log"
+    t0 = time.perf_counter()
+    with open(log, "w") as out:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "supervised_dispnet_tpu_torch.cli.serve", "--pretrained",
+             ckpt, "--network", "disp_res_50", "--img-height", str(H), "--img-width", str(W),
+             "--port", str(port)], cwd=REPO, stdout=out, stderr=subprocess.STDOUT)
+    try:
+        while True:
+            if proc.poll() is not None:
+                raise AssertionError(f"serve exited with {proc.returncode}: "
+                                     f"{log.read_text()[-2000:]}")
+            if time.perf_counter() - t0 > 300:
+                raise AssertionError(f"serve not up in 300 s: {log.read_text()[-2000:]}")
+            try:
+                status, body = _http(f"{url}/healthz", timeout=5)
+                break
+            except OSError:
+                time.sleep(0.5)
+        ready_s = time.perf_counter() - t0
+        if (status, body) != (200, b"ok"):
+            raise AssertionError(f"/healthz answered {status} {body!r}")
+        worst, post_ms = 0.0, []
+        for f in frames:
+            t1 = time.perf_counter()
+            status, body = _http(f"{url}/depth", f.read_bytes())
+            post_ms.append((time.perf_counter() - t1) * 1e3)
+            if status != 200:
+                raise AssertionError(f"POST /depth of {f.name} answered {status}: {body[:200]!r}")
+            got = np.load(io.BytesIO(body))
+            want = svc.predict(resize_area_uint8(as_rgb(read_png(f)), H, W))[0]
+            if got.shape != (H, W) or got.dtype != np.float32:
+                raise AssertionError(f"POST /depth: {got.shape} {got.dtype}")
+            worst = max(worst, _rel(got, want))
+        status, body = _http(f"{url}/depth", b"\xff\xd8\xff\xe0 not a PNG")
+        if status != 400 or b"only PNG" not in body:
+            raise AssertionError(f"a non-PNG body answered {status}: {body[:200]!r}")
+    finally:
+        proc.kill()
+        proc.wait(timeout=60)
+    print(f"  serve: up in {ready_s:.2f} s; {len(frames)} PNG posts of 375x1242 in "
+          f"{', '.join(f'{t:.1f}' for t in post_ms)} ms, depth rel {worst:.3g} against "
+          f"predict (limit 1e-4); a non-PNG body answered 400", flush=True)
+    if worst > 1e-4:
+        raise AssertionError(f"serve: depth rel {worst} against predict")
+    return {"ready_s": ready_s, "post_ms": post_ms, "depth_rel_vs_predict": worst}
+
+
+def serving_phase(torch, tmp: Path, card: str, ckpt: str, tree: Path) -> dict:
+    """Online serving (A5): ``DepthService.from_checkpoint`` with the BerHu
+    run's DispResNet-50 checkpoint at 128x416 and the default buckets (1, 8,
+    64), fused decoder (the default) and not. ``predict`` on the card
+    against a ``device='cpu'`` service, within rel 1e-3, and fused against
+    unfused, within rel 1e-4; 64 requests from 8 threads through
+    ``submit``, all answered and within rel 1e-4 of ``predict``'s (other
+    batch sizes, other cuDNN choices); latency at one request in flight;
+    img/s through ``predict`` at buckets 1, 8 and 64 (host clock around the
+    whole call, readback included) beside the forward alone (CUDA events);
+    then the HTTP server on the tree's first 4 frames."""
+    import dataclasses
+    import threading
+
+    from supervised_dispnet_tpu_torch.kitti_eval.synthetic import DATE
+    from supervised_dispnet_tpu_torch.serving import DepthService, ServingConfig
+
+    _, H, W = MAIN_SHAPE
+    cfg = ServingConfig(img_height=H, img_width=W)
+    rng = np.random.default_rng(15)
+    svcs, warm = {}, {}
+    for name, fused in (("fused", True), ("unfused", False)):
+        svcs[name] = DepthService.from_checkpoint(
+            ckpt, "disp_res_50", dataclasses.replace(cfg, fused_upsample=fused))
+        t0 = time.perf_counter()
+        svcs[name].warmup()
+        warm[name] = time.perf_counter() - t0
+    cpu = DepthService.from_checkpoint(ckpt, "disp_res_50", cfg, device="cpu")
+    imgs = rng.integers(0, 256, (5, H, W, 3), dtype=np.uint8)
+    fused, unfused, on_cpu = svcs["fused"].predict(imgs), svcs["unfused"].predict(imgs), \
+        cpu.predict(imgs)
+    rel_cpu, rel_fused = _rel(fused, on_cpu), _rel(fused, unfused)
+    print(f"  serving: buckets {cfg.buckets} warm in {warm['fused']:.2f} s fused, "
+          f"{warm['unfused']:.2f} s unfused; predict card vs CPU rel {rel_cpu:.3g} (limit "
+          f"1e-3), fused vs unfused rel {rel_fused:.3g} (limit 1e-4)", flush=True)
+    if fused.shape != (5, H, W) or not np.isfinite(fused).all() or rel_cpu > 1e-3 \
+            or rel_fused > 1e-4:
+        raise AssertionError(f"serving predict: shape {fused.shape}, card vs CPU {rel_cpu}, "
+                             f"fused vs unfused {rel_fused}")
+
+    reqs = rng.integers(0, 256, (64, H, W, 3), dtype=np.uint8)
+    want = svcs["fused"].predict(reqs)
+    answers, errors = {}, []
+
+    def client(k: int) -> None:
+        try:
+            futs = [(i, svcs["fused"].submit(reqs[i])) for i in range(8 * k, 8 * k + 8)]
+            answers.update({i: f.result(timeout=120) for i, f in futs})
+        except Exception as e:  # noqa: BLE001 - raised below
+            errors.append(e)
+
+    with svcs["fused"]:
+        threads = [threading.Thread(target=client, args=(k,)) for k in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+    submit_rel = max((_rel(answers[i], want[i]) for i in answers), default=math.inf)
+    print(f"  serving: {len(answers)} of 64 requests from 8 threads answered; rel "
+          f"{submit_rel:.3g} against predict (limit 1e-4)", flush=True)
+    if errors or len(answers) != 64 or submit_rel > 1e-4:
+        raise AssertionError(f"serving submit: {len(answers)} answered, errors {errors[:2]}, "
+                             f"rel {submit_rel}")
+
+    timing = {}
+    for name, svc in svcs.items():
+        lat = _serve_latency(svc, reqs)
+        model = svc.model
+        tput = {}
+        for b in (1, 8, 64):
+            reps = {1: 20, 8: 10, 64: 4}[b]
+            svc.predict(reqs[:b])
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                svc.predict(reqs[:b])
+            dt = (time.perf_counter() - t0) / reps
+            x = (torch.rand(b, H, W, 3, generator=torch.Generator().manual_seed(b)) * 2
+                 - 1).cuda()
+
+            def forward():
+                with torch.inference_mode():
+                    return model(x)
+
+            fwd = cuda_ms(torch, forward, reps=5 if b == 64 else 20, warmup=3)
+            tput[b] = {"predict_ms": dt * 1e3, "img_per_s": b / dt, "forward_ms": fwd,
+                       "forward_img_per_s": b / fwd * 1e3}
+        timing[name] = {"latency_one_in_flight": lat, "throughput": tput}
+        print(f"  serving {name}: one request in flight {lat['mean_ms']:.3f} ms mean, "
+              f"{lat['p50_ms']:.3f} p50, {lat['p90_ms']:.3f} p90; "
+              + "; ".join(f"predict B={b} {t['predict_ms']:.3f} ms ({t['img_per_s']:.1f} "
+                          f"img/s), forward {t['forward_ms']:.3f} ms" for b, t in tput.items())
+              + f"; on {card}", flush=True)
+    frames = sorted((tree.parent / DATE / f"{DATE}_drive_0001_sync" / "image_02" / "data")
+                    .glob("*.png"))[:4]
+    http = http_server_check(tmp, ckpt, svcs["fused"], frames)
+    return {"warmup_s": warm, "predict_rel": {"card_vs_cpu": rel_cpu,
+                                              "fused_vs_unfused": rel_fused},
+            "submit_rel_vs_predict": submit_rel, "timing": timing, "http": http, "card": card}
+
+
+# network -> BerHu problems a step: VGG-BN's 4 disparity scales, FCRN's one
+# depth map
+NETWORK_PROBLEMS = {"disp_vgg_bn": 4, "fcrn": 1}
+
+
+def networks_phase(torch, tmp: Path, card: str, tree: Path) -> dict:
+    """The last two networks (A6a). Each trains 3 supervised BerHu steps
+    through ``cli.train.main`` at 128x416, B=4, on a packed split (1 grouped
+    forward and 1 grouped backward BerHu launch a step, of 4 problems for
+    VGG-BN, 1 for FCRN), with its step time and profile; then its eval
+    forward at (8, 3, 128, 416) from the run's checkpoint: card against CPU
+    within rel 1e-3, VGG-BN fused against unfused within rel 1e-4, ms a
+    batch from CUDA events and a profile of the top kernels. Last, folder
+    inference of FCRN on the tree's first drive, card against CPU depths
+    within rel 1e-3."""
+    from supervised_dispnet_tpu_torch.cli import run_inference
+    from supervised_dispnet_tpu_torch.cli import train as train_cli
+    from supervised_dispnet_tpu_torch.cli.test_disp import load_model
+    from supervised_dispnet_tpu_torch.kitti_eval.synthetic import DATE
+    from supervised_dispnet_tpu_torch.ops.cuda import losses as kl
+
+    B, H, W = MAIN_SHAPE
+    out = {}
+    for net, problems in NETWORK_PROBLEMS.items():
+        write_packed(tmp / net / "data", np.random.default_rng(16), H, W)
+        argv = [str(tmp / net / "data"), "--network", net, "--loss", "berhu", "-b", str(B),
+                "--epoch-size", "3", "--epochs", "1", "--with-gt", "--device", "cuda",
+                "--checkpoints-dir", str(tmp / net / "ckpt"), "--name", "smoke"]
+        kl.berhu_fwd_launches = kl.berhu_bwd_launches = kl.berhu_fwd_problems = 0
+        trainer = train_cli.main(argv)
+        torch.cuda.synchronize()
+        launches = {"berhu_fwd": kl.berhu_fwd_launches, "berhu_bwd": kl.berhu_bwd_launches,
+                    "berhu_fwd_problems": kl.berhu_fwd_problems}
+        steps = trainer.step
+        want = {"berhu_fwd": steps, "berhu_bwd": steps, "berhu_fwd_problems": problems * steps}
+        print(f"  {net}: {steps} steps; launches {launches}", flush=True)
+        if steps < 3 or launches != want:
+            raise AssertionError(f"{net}: expected launches {want} over {steps} steps, got "
+                                 f"{launches}")
+        losses, epoch = _read_run(trainer, steps)
+        if not all(math.isfinite(epoch[k]) for k in ("abs_rel", "rmse", "a1")):
+            raise AssertionError(f"{net}: validation metrics not finite: {epoch}")
+        timed = steady_step(torch, trainer, f"{net} BerHu", card)
+        berhu = {r["kernel"]: r["calls_per_step"] for r in timed["profile"]["own_kernels"]
+                 if "berhu_" in r["kernel"]}
+        if sorted(round(v) for v in berhu.values()) != [1, 1]:
+            raise AssertionError(f"{net}: the step's profile shows BerHu kernels {berhu}")
+        ckpt = str(Path(trainer.cfg.save_path) / "dispnet_checkpoint.pth.tar")
+
+        x = torch.rand(EVAL_BATCH, H, W, 3, generator=torch.Generator().manual_seed(17)) * 2 - 1
+        preds, fwd = {}, {}
+        variants = [("card", False, "cuda"), ("cpu", False, "cpu")]
+        if net == "disp_vgg_bn":
+            variants.append(("card_fused", True, "cuda"))
+        for name, fused_up, dev in variants:
+            model = load_model(ckpt, net, fused_upsample=fused_up, device=dev)
+            xd = x.to(next(model.parameters()).device)
+
+            def forward():
+                with torch.inference_mode():
+                    o = model(xd)
+                    return o[0] if isinstance(o, list) else o
+
+            preds[name] = forward().cpu().numpy()
+            if dev == "cuda":
+                ms = cuda_ms(torch, forward, reps=20, warmup=3)
+                fwd[name] = {"ms": ms, "img_per_s": EVAL_BATCH / ms * 1e3,
+                             "profile": profile_steps(torch, forward, n=5, top=8)}
+                print(f"  {net} eval forward {name}: ({EVAL_BATCH}, 3, {H}, {W}) fp32 "
+                      f"{ms:.3f} ms, {EVAL_BATCH / ms * 1e3:.1f} img/s, on {card}", flush=True)
+        rel_cpu = _rel(preds["card"], preds["cpu"])
+        rel_fused = _rel(preds["card_fused"], preds["card"]) if "card_fused" in preds else None
+        print(f"  {net} eval forward: card vs CPU rel {rel_cpu:.3g} (limit 1e-3)"
+              + (f", fused vs unfused rel {rel_fused:.3g} (limit 1e-4)" if rel_fused is not None
+                 else ""), flush=True)
+        if rel_cpu > 1e-3 or (rel_fused is not None and rel_fused > 1e-4):
+            raise AssertionError(f"{net}: eval forward card vs CPU {rel_cpu}, fused {rel_fused}")
+        out[net] = {"launches": launches, "train_losses": losses,
+                    "val": {k: epoch[k] for k in ("abs_rel", "rmse", "a1")},
+                    "step_ms": timed["step_ms"], "step_ms_tf32": timed["step_ms_tf32"],
+                    "profile": timed["profile"], "eval_forward": fwd,
+                    "eval_rel": {"card_vs_cpu": rel_cpu, "fused_vs_unfused": rel_fused},
+                    "checkpoint": ckpt}
+
+    frames = tree.parent / DATE / f"{DATE}_drive_0001_sync" / "image_02" / "data"
+    for name, extra in (("card", []), ("cpu", ["--device", "cpu"])):
+        run_inference.main(["--pretrained", out["fcrn"]["checkpoint"], "--network", "fcrn",
+                            "--dataset-dir", str(frames), "--output-dir",
+                            str(tmp / f"fcrn_infer_{name}"), "--img-height", str(H),
+                            "--img-width", str(W), "--save-npy", *extra])
+    stems = sorted(f.stem for f in frames.glob("*.png"))
+    worst = max(_rel(*(np.load(tmp / f"fcrn_infer_{n}" / f"{s}_depth.npy")
+                       for n in ("card", "cpu"))) for s in stems)
+    print(f"  fcrn inference: {len(stems)} frames, depth card vs CPU rel {worst:.3g} "
+          f"(limit 1e-3)", flush=True)
+    if len(stems) != 8 or worst > 1e-3:
+        raise AssertionError(f"fcrn inference: {len(stems)} frames, rel {worst}")
+    out["fcrn_inference_rel_card_vs_cpu"] = worst
+    return out
+
+
 def inverse_warp_phase(torch, device: str = "cuda") -> dict:
     """``ops.warp.inverse_warp`` as a user calls it, with its default
     ``diff_img=True``, at the main path's shape, and a backward into the
@@ -1951,6 +2344,18 @@ def _rel_l2(g, ref) -> float:
     return float((g - ref).norm() / ref.norm().clamp(min=1e-30))
 
 
+def bn_cancelled_biases(torch, model) -> dict:
+    """{bias name: its conv's weight name} of each conv whose output goes
+    straight into a BatchNorm (VGG-BN's encoder, FCRN's decoder): train-mode
+    BN subtracts the batch mean, so the bias's gradient is 0 analytically
+    and what either side computes is rounding."""
+    mods = list(model.named_modules())
+    return {f"{name}.bias": f"{name}.weight"
+            for (name, m), (_, nxt) in zip(mods, mods[1:])
+            if isinstance(m, torch.nn.Conv2d) and m.bias is not None
+            and isinstance(nxt, torch.nn.BatchNorm2d)}
+
+
 def _one_step(torch, model, batch: dict, device, plain: bool = False, loss: str = "berhu"):
     """One supervised train step (BerHu, or the 64-bin classification CE),
     augmentation off; ``plain=True`` swaps the plain BerHu and CE in for the
@@ -1988,21 +2393,33 @@ SUPERVISED_CHECKS = (
     ("DispResNet-50 multi-scale classification",
      {"encoder_depth": 50, "head": "classification", "multiscale_classification": True},
      "classification", None, "card plain"),
+    ("DispVggBN", {"network": "disp_vgg_bn"}, "berhu", "cpu", "cpu"),
+    ("FCRN", {"network": "fcrn"}, "berhu", "cpu", "cpu"),
 )
+# the parameters held by relative L2 (ROADMAP.md C4) against the CPU, by
+# name prefix: those whose gradients a train-mode BN spreads a ReLU flip
+# over. Every network's encoder; for FCRN, whose ResNet-50 sits at the root
+# of its state dict, also the 1x1 reduction and the up-projections, each
+# ahead of a BN of a small map (4x13 .. 64x208 at B = 4)
+BN_SPREAD_PREFIXES = {"fcrn": ("conv1.", "bn1.", "layer", "conv2.", "bn2.", "up")}
 
 
 def cross_check(torch, device: str = "cuda", checks=SUPERVISED_CHECKS) -> dict:
     """One supervised train step at the main-path shape from identical
     weights on one batch, augmentation off, TF32 off for cuDNN and matmul,
     for each of ``checks``: BerHu and the 64-bin classification CE
-    (single- and multi-scale). Loss rtol 1e-4; gradients rtol 1e-3
-    (``_grads_agree``: the two sides sum in other orders).
+    (single- and multi-scale) on DispResNet, BerHu on VGG-BN and FCRN. Loss
+    rtol 1e-4; gradients rtol 1e-3 (``_grads_agree``: the two sides sum in
+    other orders).
 
     - DispResNet-50 on the card, with the kernels against the plain BerHu
       or CE: the same convolutions on the same device, so every gradient
       must agree and only the loss kernels differ.
     - Card (kernels) against CPU (plain): the loss and the decoder's and
-      heads' gradients. The encoder's gradients are
+      heads' gradients (a conv bias ahead of a BatchNorm has a gradient of
+      0 analytically: ``bn_cancelled_biases``, held to be ~0 on both sides).
+      The encoder's gradients (FCRN's up-projections' too:
+      ``BN_SPREAD_PREFIXES``) are
       compared by relative L2 norm, within 5e-2: in fp32 they are not fixed
       to 1e-3 by the inputs. A ReLU input within rounding of zero lands on
       the other side on the other device and takes its whole gradient with
@@ -2010,7 +2427,7 @@ def cross_check(torch, device: str = "cuda", checks=SUPERVISED_CHECKS) -> dict:
       encoder weight below it (PERF.md). The CPU's own fp32 step differs
       from its fp64 step in the same way.
     """
-    from supervised_dispnet_tpu_torch.models import DispResNet
+    from supervised_dispnet_tpu_torch.models import DispResNet, get_disp_net
 
     flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
     torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
@@ -2024,33 +2441,47 @@ def cross_check(torch, device: str = "cuda", checks=SUPERVISED_CHECKS) -> dict:
         report = {}
         for label, kwargs, loss, plain_dev, other in checks:
             plain_dev = plain_dev or device
-            base = DispResNet(**kwargs, generator=torch.Generator().manual_seed(3))
+            net = kwargs.get("network")
+            base = (get_disp_net(net, seed=3, device="cpu") if net else
+                    DispResNet(**kwargs, generator=torch.Generator().manual_seed(3)))
+            spread = BN_SPREAD_PREFIXES.get(net, ("encoder.",))
             l_a, g_a = _one_step(torch, copy.deepcopy(base).to(device), batch, device,
                                  loss=loss)
             l_b, g_b = _one_step(torch, copy.deepcopy(base).to(plain_dev), batch, plain_dev,
                                  plain=True, loss=loss)
             tag = f"{label} card vs {other}"
-            strict = [n for n in g_b if plain_dev == device or not n.startswith("encoder.")]
-            worst = 0.0
+            # a BN-cancelled bias's gradient is held to be rounding (below
+            # 1e-4 of its weight's) on both sides, not compared
+            cancelled = bn_cancelled_biases(torch, base)
+            for n, w in cancelled.items():
+                if max(g_a[n].norm(), g_b[n].norm()) > 1e-4 * g_b[w].norm():
+                    raise AssertionError(f"cross-check {tag}: {n}'s gradient is not ~0")
+            g_a = {n: g for n, g in g_a.items() if n not in cancelled}
+            g_b = {n: g for n, g in g_b.items() if n not in cancelled}
+            strict = [n for n in g_b if plain_dev == device or not n.startswith(spread)]
+            worst, bad = 0.0, []
             for n in strict:
                 ok, excess = _grads_agree(g_a[n], g_b[n])
                 worst = max(worst, excess)
                 if not ok:
-                    raise AssertionError(f"cross-check {tag}: gradient {n} disagrees "
-                                         f"(excess {excess:.3g})")
-            rels = sorted(_rel_l2(g_a[n], g_b[n]) for n in g_b if n not in strict)
-            if rels and rels[-1] > 5e-2:
-                raise AssertionError(f"cross-check {tag}: encoder gradient rel-L2 "
-                                     f"{rels[-1]:.3g} > 5e-2")
+                    bad.append(f"{n} (excess {excess:.3g})")
+            rels = sorted((_rel_l2(g_a[n], g_b[n]), n) for n in g_b if n not in strict)
+            bad += [f"{n} (rel-L2 {r:.3g} > 5e-2)" for r, n in rels if r > 5e-2]
+            rels = [r for r, _ in rels]
+            if bad:
+                raise AssertionError(f"cross-check {tag}: gradients disagree: "
+                                     f"{', '.join(bad[:8])}{' ...' if len(bad) > 8 else ''}")
             if not math.isclose(l_a, l_b, rel_tol=1e-4):
                 raise AssertionError(f"cross-check {tag}: loss {l_a} vs {l_b}")
             report[tag] = {"loss": [l_a, l_b], "rtol_1e-3_gradients": len(strict),
+                           "bn_cancelled_biases": len(cancelled),
                            "worst_excess": worst,
                            "encoder_rel_l2_median": rels[len(rels) // 2] if rels else None,
                            "encoder_rel_l2_max": rels[-1] if rels else None}
             print(f"  cross-check {tag}: loss {l_a:.7g} / {l_b:.7g}; {len(strict)} "
                   f"gradients within rtol 1e-3 (worst excess {worst:.3g})"
-                  + (f"; {len(rels)} encoder gradients rel-L2 median "
+                  + (f"; {len(cancelled)} BN-cancelled biases ~0" if cancelled else "")
+                  + (f"; {len(rels)} encoder gradients (BN-spread) rel-L2 median "
                      f"{rels[len(rels) // 2]:.3g} max {rels[-1]:.3g}" if rels else ""),
                   flush=True)
         return report
@@ -2194,6 +2625,17 @@ def main() -> int:
         if any(eval_launches.values()):
             raise AssertionError(f"the eval and inference paths launched kernels: "
                                  f"{eval_launches}")
+        # nor do the pose evaluation and serving paths
+        for mod, attr in kernel_counters():
+            setattr(mod, attr, 0)
+        po = pose_phase(torch, Path(tmp), card, ss["pose_checkpoint"])
+        sv = serving_phase(torch, Path(tmp), card, sl["checkpoint"], tree)
+        torch.cuda.synchronize()
+        serve_launches = {attr: getattr(mod, attr) for mod, attr in kernel_counters()}
+        if any(serve_launches.values()):
+            raise AssertionError(f"the pose and serving paths launched kernels: "
+                                 f"{serve_launches}")
+        nets = networks_phase(torch, Path(tmp), card, tree)
     iw = inverse_warp_phase(torch)
     xc = {**cross_check(torch), **selfsup_cross_check(torch)}
 
@@ -2223,6 +2665,8 @@ def main() -> int:
         "classification_multiscale": {"launches": cm["launches"], "val": cm["val"]},
         "inverse_warp": iw, "cross_check": xc}))
     print(json.dumps({"eval": ev, "inference": inf, "eval_kernel_launches": eval_launches}))
+    print(json.dumps({"pose": po, "serving": sv, "networks": nets,
+                      "pose_serving_kernel_launches": serve_launches}))
     print(json.dumps({"kernels": list(kernels.values())}))
     print(card)
     print(json.dumps({"ok": True, "device": {

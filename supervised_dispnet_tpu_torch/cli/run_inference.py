@@ -39,9 +39,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--save-npy", action="store_true")
     p.add_argument("--img-exts", nargs="+", default=["png", "jpg", "bmp"])
     p.add_argument("--fused-upsample", action="store_true",
-                   help="disp_res*: each decoder stage's 2x upsample composed "
-                        "into the conv after it (ops/fused_upconv.py; exact); "
-                        "height and width divisible by 32")
+                   help="disp_res* / disp_vgg_bn: each decoder stage's 2x "
+                        "upsample composed into the conv after it "
+                        "(ops/fused_upconv.py; exact); height and width divisible by 32")
     p.add_argument("--imagenet-normalization", action="store_true")
     p.add_argument("--batch-size", type=int, default=8, help="images per forward")
     p.add_argument("--device", default="cuda",
@@ -54,7 +54,7 @@ def image_reader(files: list[Path]):
     mode gives it (grey replicated, alpha dropped). PNGs go through the
     port's decoder, other files through ``imageio``; without ``imageio``
     installed, non-PNG files raise here, before any is read."""
-    from supervised_dispnet_tpu_torch.utils.image_io import read_png
+    from supervised_dispnet_tpu_torch.utils.image_io import as_rgb, read_png
 
     others = [f for f in files if f.suffix.lower() != ".png"]
     imread = None
@@ -69,12 +69,7 @@ def image_reader(files: list[Path]):
         imread = imageio.imread
 
     def read(f: Path) -> np.ndarray:
-        img = read_png(f) if f.suffix.lower() == ".png" else np.asarray(imread(f))
-        if img.ndim == 2:
-            img = img[:, :, None]
-        if img.shape[2] in (1, 2):  # grey, grey + alpha
-            img = np.repeat(img[:, :, :1], 3, axis=2)
-        return img[:, :, :3]
+        return as_rgb(read_png(f) if f.suffix.lower() == ".png" else np.asarray(imread(f)))
 
     return read
 
@@ -116,9 +111,15 @@ def main(argv: list[str] | None = None) -> None:
         chunk = files[c0:c0 + B]
         x = torch.from_numpy(np.stack([load(f) for f in chunk])).to(dev)
         with torch.inference_mode():
-            disps = model(normalize_images(x, mean, std))[0][..., 0].cpu().numpy()
-        for f, disp in zip(chunk, disps):
-            depth = 1.0 / np.maximum(disp, 1e-6)
+            out = model(normalize_images(x, mean, std))
+        direct_depth = not isinstance(out, list)  # FCRN: metric depth
+        preds = (out if direct_depth else out[0])[..., 0].cpu().numpy()
+        for f, pred in zip(chunk, preds):
+            if direct_depth:
+                depth = np.maximum(pred, 1e-6)
+                disp = 1.0 / depth
+            else:
+                disp, depth = pred, 1.0 / np.maximum(pred, 1e-6)
             if args.output_disp:
                 save_depth_png(dst / f"{f.stem}_disp.png", disp)
             if args.output_depth:

@@ -8,7 +8,7 @@ spellings (``supervised_dispnet_tpu/cli/test_disp.py``):
 
 Per image (reference: ``test_disp.py::main``): decode, area-resize to the
 network input (416x128), normalise, forward in full fp32, depth = 1 / disp
-(or the soft decode of the bin logits), linear resize of the prediction to
+(the soft decode of the bin logits; FCRN's output as it is), linear resize of the prediction to
 the GT size, then Garg crop, depth caps, optional median scaling and the
 Eigen errors (``kitti_eval/depth_evaluation_utils.py``). A host thread
 decodes and resizes batch k + 1 while the card runs batch k, and the
@@ -55,9 +55,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--batch-size", type=int, default=8)
     p.add_argument("--output-dir", default=None, help="dump predicted depth .npy")
     p.add_argument("--fused-upsample", action="store_true",
-                   help="disp_res*: each decoder stage's 2x upsample composed "
-                        "into the conv after it (ops/fused_upconv.py; exact, "
-                        "same checkpoint); height and width divisible by 32")
+                   help="disp_res* / disp_vgg_bn: each decoder stage's 2x upsample "
+                        "composed into the conv after it (ops/fused_upconv.py; "
+                        "exact, same checkpoint); height and width divisible by 32")
     p.add_argument("--device", default="cuda",
                    help="torch device; 'cpu' runs on the CPU")
     return p
@@ -100,7 +100,8 @@ def main(argv: list[str] | None = None) -> dict[str, float]:
     from supervised_dispnet_tpu_torch.data.image_resize import resize_area, resize_linear
     from supervised_dispnet_tpu_torch.kitti_eval.depth_evaluation_utils import (
         EvalConfig, KittiEigenFramework, evaluate_depth)
-    from supervised_dispnet_tpu_torch.losses.classification import DepthBins, logits_to_depth
+    from supervised_dispnet_tpu_torch.losses.classification import DepthBins
+    from supervised_dispnet_tpu_torch.training.train_step import output_depth
     from supervised_dispnet_tpu_torch.utils.device import resolve_device, set_fp32_math
 
     dev = resolve_device(args.device)
@@ -121,11 +122,7 @@ def main(argv: list[str] | None = None) -> dict[str, float]:
             x = x.pin_memory()
         x = normalize_images(x.to(dev, non_blocking=True), mean, std)
         with torch.inference_mode():
-            out = model(x)
-            if args.classification:
-                depth = logits_to_depth(out[0] if isinstance(out, list) else out, bins)
-            else:
-                depth = 1.0 / out[0][..., 0]
+            depth = output_depth(model(x), bins if args.classification else None)
         if dev.type != "cuda":
             return depth, None
         host = torch.empty(depth.shape, dtype=depth.dtype, pin_memory=True)

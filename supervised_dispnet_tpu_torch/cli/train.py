@@ -27,9 +27,8 @@ _LATER_FLAGS = frozenset((
     "--ema-decay", "--imagenet-normalization", "--hue", "--half-res-photo",
     "--stochastic-photo", "--bf16", "--remat", "--qat", "--debug-nans", "--loader",
     "--steps-per-dispatch", "--accum-steps", "--spatial-shards",
-    "--profile-steps", "-f", "--training-output-freq", "--pretrained-disp",
-    "-j", "--workers",
-    "--pretrained-exppose", "--pretrained-encoder", "--resume",
+    "--profile-steps", "-f", "--training-output-freq",
+    "-j", "--workers", "--pretrained-encoder", "--resume",
 ))
 
 
@@ -41,7 +40,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--network", default="dispnet",
                    choices=["dispnet", "disp_res", "disp_res_18", "disp_res_50",
                             "disp_vgg_bn", "fcrn"],
-                   help="dispnet and disp_res* are ported; the others raise")
+                   help="fcrn predicts metric depth (one scale), the others "
+                        "disparity at four scales")
     p.add_argument("--loss", default="berhu",
                    choices=["l1", "berhu", "scale_invariant", "classification",
                             "selfsup"],
@@ -82,9 +82,15 @@ def build_parser() -> argparse.ArgumentParser:
                    help="supervise bin logits at all 4 decoder scales "
                         "(classification head)")
     p.add_argument("--fused-upsample", action="store_true",
-                   help="disp_res*: each decoder stage's 2x upsample composed "
-                        "into the conv after it (ops/fused_upconv.py; exact, "
-                        "same state dict); height and width divisible by 32")
+                   help="disp_res* / disp_vgg_bn: each decoder stage's 2x upsample "
+                        "composed into the conv after it (ops/fused_upconv.py; "
+                        "exact, same state dict); height and width divisible by 32")
+    p.add_argument("--pretrained-disp", default=None,
+                   help="initialise the disp net from a .pth.tar (the port's "
+                        "Trainer or the reference)")
+    p.add_argument("--pretrained-exppose", default=None,
+                   help="--loss selfsup: initialise the pose net from an exp_pose "
+                        ".pth.tar; with -m > 0 it must hold the mask decoder")
     p.add_argument("--max-depth", type=float, default=80.0)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--img-height", type=int, default=128,
@@ -109,6 +115,26 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     return parse_args_or_raise(build_parser(), argv, _LATER_FLAGS)
 
 
+def load_pretrained_exppose(pose_model, path: str | Path) -> None:
+    """An exp_pose ``.pth.tar`` into ``pose_model``, strictly. Without the
+    mask decoder (``output_exp=False``, ``-m 0``) its keys are dropped, as
+    the JAX converter drops them; with it, a checkpoint that lacks them
+    raises ``ValueError`` naming them (the JAX converter leaves them out and
+    its first step fails)."""
+    from supervised_dispnet_tpu_torch.utils.checkpoint import load_torch_state_dict
+
+    sd = load_torch_state_dict(path)
+    decoder = ("upconv", "predict_mask")
+    if not pose_model.output_exp:
+        sd = {k: v for k, v in sd.items() if not k.startswith(decoder)}
+    missing = sorted(k for k in pose_model.state_dict() if k not in sd)
+    if missing:
+        raise ValueError(
+            f"{path} has no {', '.join(missing[:4])}{' ...' if len(missing) > 4 else ''}: "
+            "a pose checkpoint without the explainability decoder loads only with -m 0")
+    pose_model.load_state_dict(sd, strict=True)
+
+
 def main(argv: list[str] | None = None):
     """Train; returns the ``Trainer``."""
     args = parse_args(argv)
@@ -117,6 +143,7 @@ def main(argv: list[str] | None = None):
 
     from supervised_dispnet_tpu_torch.models import PoseExpNet, get_disp_net
     from supervised_dispnet_tpu_torch.training.trainer import Trainer, TrainerConfig
+    from supervised_dispnet_tpu_torch.utils.checkpoint import load_torch_state_dict
 
     timestamp = datetime.datetime.now().strftime("%m-%d-%H.%M")
     save_path = Path(args.checkpoints_dir) / args.name / timestamp
@@ -142,6 +169,12 @@ def main(argv: list[str] | None = None):
         pose_model = PoseExpNet(nb_ref_imgs=args.sequence_length - 1,
                                 output_exp=args.mask_loss_weight > 0,
                                 generator=torch.Generator().manual_seed(args.seed + 1))
+    if args.pretrained_disp:
+        model.load_state_dict(load_torch_state_dict(args.pretrained_disp), strict=True)
+    if args.pretrained_exppose:
+        if pose_model is None:
+            raise ValueError("--pretrained-exppose needs --loss selfsup")
+        load_pretrained_exppose(pose_model, args.pretrained_exppose)
     trainer = Trainer(cfg, model, pose_model, device=args.device)
     print(f"=> saving to {save_path}")
     best = trainer.fit()

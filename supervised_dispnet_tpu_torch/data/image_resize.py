@@ -91,3 +91,15 @@ def resize_linear(img: np.ndarray, h: int, w: int) -> np.ndarray:
     x = img[..., None] if grey else img
     out = _resize(x, linear_weights(x.shape[-3], h), linear_weights(x.shape[-2], w))
     return out[..., 0] if grey else out
+
+
+def resize_area_uint8(img: np.ndarray, h: int, w: int) -> np.ndarray:
+    """``cv2.resize`` of a uint8 image with ``INTER_AREA`` (a downscale): the
+    float32 area means rounded to the nearest level, ties to even, as cv2
+    rounds them at a non-integer ratio. At some integer ratios cv2 takes a
+    fast path that rounds ties up, so a pixel there may differ by one level."""
+    img = np.asarray(img)
+    if img.dtype != np.uint8:
+        raise ValueError(f"resize_area_uint8 takes uint8, got {img.dtype}")
+    out = resize_area(img.astype(np.float32), h, w)
+    return np.clip(np.rint(out), 0, 255).astype(np.uint8)

@@ -1,5 +1,7 @@
-"""A synthetic KITTI-raw tree, made from a seed, for the eval CLI's tests and
-smoke runs where no KITTI data is at hand: the raw layout
+"""Synthetic KITTI trees, made from a seed, for the eval CLIs' tests and
+smoke runs where no KITTI data is at hand.
+
+``write_kitti_raw`` writes the raw layout
 (``<date>/calib_{cam_to_cam,velo_to_cam}.txt``,
 ``<date>/<drive>/image_02/data/<frame>.png``,
 ``<date>/<drive>/velodyne_points/data/<frame>.bin``) and an Eigen-format list
@@ -11,6 +13,11 @@ points lie in front of the camera, 3-80 m deep, and project into the lower
 65% of the frame, as the LiDAR covers the road scene there. The frames are a
 smooth gradient plus noise, written with the Paeth row filter, the costliest
 for the decoder.
+
+``write_kitti_odometry`` writes the odometry layout that the pose eval CLI
+reads (``sequences/<seq>/image_2/<frame>.png``, ``poses/<seq>.txt``): a
+camera driving forward ~1 m a frame, its heading and height wandering, each
+step drawn in the current camera frame, with KITTI's cam-to-world rows.
 """
 
 from __future__ import annotations
@@ -69,3 +76,47 @@ def write_kitti_raw(root: str | Path, seed: int = 0, drives: int = 2, frames: in
     list_file = root / "eigen_test_files.txt"
     list_file.write_text("\n".join(lines) + "\n")
     return list_file
+
+
+def _euler_mat(a: np.ndarray) -> np.ndarray:
+    """Rx @ Ry @ Rz of Euler angles (x, y, z)."""
+    (cx, cy, cz), (sx, sy, sz) = np.cos(a), np.sin(a)
+    rx = np.array([[1, 0, 0], [0, cx, -sx], [0, sx, cx]])
+    ry = np.array([[cy, 0, sy], [0, 1, 0], [-sy, 0, cy]])
+    rz = np.array([[cz, -sz, 0], [sz, cz, 0], [0, 0, 1]])
+    return rx @ ry @ rz
+
+
+def write_kitti_odometry(root: str | Path, seed: int = 0, seq: str = "09",
+                         frames: int = 40, height: int = 375, width: int = 1242,
+                         rot: float = 0.02) -> Path:
+    """Write one odometry sequence of ``frames`` (height, width) RGB PNGs and
+    its ground-truth poses under ``root``; returns ``root``.
+
+    Each step moves the camera in its own frame by ~1 m forward (z), up to
+    0.1 m sideways and 0.05 m up or down, and turns it by up to ``rot`` rad
+    about each axis. The poses file holds each frame's 3x4 camera-to-world
+    matrix in frame 0's coordinates, one flattened row a frame. The images
+    are a gradient that slides with the frame index, plus noise."""
+    root = Path(root)
+    rng = np.random.default_rng(seed)
+    img_dir = root / "sequences" / seq / "image_2"
+    img_dir.mkdir(parents=True, exist_ok=True)
+    (root / "poses").mkdir(parents=True, exist_ok=True)
+    yy, xx = np.mgrid[:height, :width]
+    R_wc, t_wc = np.eye(3), np.zeros(3)  # x_cam = R_wc @ x_0 + t_wc
+    rows = []
+    for i in range(frames):
+        base = np.stack([(xx + 7 * i) * (255 / width) % 256, yy * (255 / height),
+                         (xx + yy + 40 * i) % 256], axis=-1)
+        img = np.clip(base + rng.normal(0, 12, base.shape), 0, 255).astype(np.uint8)
+        write_png(img_dir / f"{i:06d}.png", img, filter_type=4)
+        R_cw = R_wc.T
+        rows.append(np.concatenate([R_cw, (-R_cw @ t_wc)[:, None]], axis=1).ravel())
+        step = _euler_mat(rng.uniform(-rot, rot, 3))
+        dt = np.array([rng.uniform(-0.1, 0.1), rng.uniform(-0.05, 0.05),
+                       -rng.uniform(0.8, 1.2)])
+        R_wc = step @ R_wc
+        t_wc = step @ t_wc + dt
+    np.savetxt(root / "poses" / f"{seq}.txt", np.stack(rows), fmt="%.9e")
+    return root

@@ -13,6 +13,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from supervised_dispnet_tpu_torch.ops.fused_upconv import upconv2x_fused
+
 # Disparity head output scaling (reference: DispNetS alpha/beta constants).
 DISP_ALPHA = 10.0
 DISP_BETA = 0.01
@@ -118,3 +120,22 @@ class DispHead(nn.Sequential):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.alpha * torch.sigmoid(self[0](x.to(torch.float32))) + self.beta
+
+
+def fused_upsample_conv(conv: nn.Conv2d, h: torch.Tensor, skip: torch.Tensor | None,
+                        target_hw: tuple[int, int], stage: int) -> torch.Tensor:
+    """``conv`` (3x3, padding 1) of (2x bilinear upsample of ``h`` to
+    ``target_hw``, concat ``skip``) before its activation, without the
+    upsample (``ops/fused_upconv.py::upconv2x_fused``): the weight's input
+    channels are split as the concat lays them out, ``h``'s first. The
+    decoder stage ``stage`` must upsample exactly 2x."""
+    if tuple(target_hw) != (2 * h.shape[2], 2 * h.shape[3]):
+        raise ValueError(
+            "fused_upsample needs an exact 2x stage geometry (input height "
+            f"and width divisible by 32); decoder stage {stage} upsamples "
+            f"{tuple(h.shape[2:])} to {tuple(target_hw)}")
+    ch = h.shape[1]
+    y = upconv2x_fused(h, conv.weight[:, :ch])
+    if skip is None:
+        return y + conv.bias[:, None, None]
+    return y + F.conv2d(skip, conv.weight[:, ch:], conv.bias, padding=1)

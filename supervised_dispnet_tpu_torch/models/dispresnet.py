@@ -23,9 +23,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from supervised_dispnet_tpu_torch.models.common import DispHead, xavier_uniform_
+from supervised_dispnet_tpu_torch.models.common import (
+    DispHead, fused_upsample_conv, xavier_uniform_)
 from supervised_dispnet_tpu_torch.models.resnet import ResNetEncoder
-from supervised_dispnet_tpu_torch.ops.fused_upconv import upconv2x_fused
 from supervised_dispnet_tpu_torch.ops.resize import interpolate_bilinear
 
 DEC_PLANES = (16, 32, 64, 128, 256)
@@ -83,7 +83,9 @@ class DispResNet(nn.Module):
             h = F.elu(getattr(self, f"upconv{i}")(h))
             skip = enc[i - 1] if i > 0 else None
             if self.fused_upsample:
-                h = F.elu(self._fused_iconv(i, h, skip, (H, W)))
+                target = tuple(skip.shape[2:]) if skip is not None else (H, W)
+                h = F.elu(fused_upsample_conv(getattr(self, f"iconv{i}")[0], h, skip,
+                                              target, i))
             else:
                 if skip is not None:
                     h = interpolate_bilinear(h, skip.shape[2], skip.shape[3])
@@ -100,20 +102,3 @@ class DispResNet(nn.Module):
         return [getattr(self, f"predict_disp{s + 1}")(feats[s]).permute(0, 2, 3, 1)
                 for s in range(4)]
 
-    def _fused_iconv(self, i: int, h: torch.Tensor, skip: torch.Tensor | None,
-                     out_hw: tuple[int, int]) -> torch.Tensor:
-        """``iconv{i}`` of (2x upsample of ``h``, concat ``skip``) before its
-        ELU, without the upsample: the weight's input channels are split as
-        the concat lays them out, ``h``'s first."""
-        conv = getattr(self, f"iconv{i}")[0]
-        target = tuple(skip.shape[2:]) if skip is not None else out_hw
-        if target != (2 * h.shape[2], 2 * h.shape[3]):
-            raise ValueError(
-                "fused_upsample needs an exact 2x stage geometry (input height "
-                f"and width divisible by 32); decoder stage {i} upsamples "
-                f"{tuple(h.shape[2:])} to {target}")
-        ch = h.shape[1]
-        y = upconv2x_fused(h, conv.weight[:, :ch])
-        if skip is None:
-            return y + conv.bias[:, None, None]
-        return y + F.conv2d(skip, conv.weight[:, ch:], conv.bias, padding=1)

@@ -90,8 +90,10 @@ class ResNetEncoder(nn.Module):
             self.add_module(f"layer{stage + 1}", nn.Sequential(*blocks))
 
     def init_weights(self, generator: torch.Generator | None = None) -> None:
-        """flax defaults: kaiming-normal convs, BN scale 1 / bias 0."""
-        for m in self.modules():
+        """flax defaults: kaiming-normal convs, BN scale 1 / bias 0, for the
+        encoder's own layers (a subclass's others are its own)."""
+        layers = [self.conv1, self.bn1, self.layer1, self.layer2, self.layer3, self.layer4]
+        for m in (m for layer in layers for m in layer.modules()):
             if isinstance(m, nn.Conv2d):
                 kaiming_normal_(m, generator)
             elif isinstance(m, BatchNorm2d):

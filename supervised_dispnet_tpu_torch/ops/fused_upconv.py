@@ -32,12 +32,14 @@ _TENT = (0.25, 0.75, 0.75, 0.25)
 def _tent(ndim: int, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
     """The tent taps as a transposed-conv kernel, (1, 1, 4) for ``ndim`` 1
     and their outer product (1, 1, 4, 4) for 2, made once a device and
-    dtype: a copy from the host each call would wait for the card. Not an
-    inference tensor, so that autograd may save it."""
-    g = torch.tensor(_TENT, dtype=dtype)
+    dtype: a copy from the host each call would wait for the card. Made
+    wholly outside inference mode, whatever mode the first caller is in, and
+    cloned, so the cached tensor is never an inference tensor nor a view of
+    one: autograd may save it in any later call."""
     with torch.inference_mode(False):
+        g = torch.tensor(_TENT, dtype=dtype)
         k = g if ndim == 1 else g[:, None] * g[None, :]
-        return k.to(device)[None, None]
+        return k.to(device)[None, None].clone()
 
 
 def compose_upsample_kernel(weight: torch.Tensor) -> torch.Tensor:

@@ -52,6 +52,18 @@ def disps_to_depths(disps: list[torch.Tensor]) -> list[torch.Tensor]:
     return [1.0 / d[..., 0] for d in disps]
 
 
+def output_depth(out, bins: DepthBins | None = None) -> torch.Tensor:
+    """(B, H, W) depth of a network's output: the soft decode of the finest
+    bin logits over ``bins`` (classification), 1 / the finest disparity
+    (a list of disparity maps), or the map itself (FCRN's one (B, H, W, 1)
+    tensor of depth)."""
+    if bins is not None:
+        return logits_to_depth(out[0] if isinstance(out, list) else out, bins)
+    if isinstance(out, list):
+        return 1.0 / out[0][..., 0]
+    return out[..., 0]
+
+
 def _not_ported(**options) -> None:
     for name, value in options.items():
         if value:
@@ -82,8 +94,10 @@ def make_supervised_train_step(
     ``loss_name='classification'`` trains the bin-logit head against
     ``bins.depth_to_index`` of the GT (``bins`` defaults to ``DepthBins()``):
     the CE of the (B, H, W, K) logits, or the weighted CE of the four scales
-    when the model returns a list. BerHu and the CE on the card run the CUDA
-    kernels, on the CPU their plain versions.
+    when the model returns a list. A model that returns one (B, H, W, 1)
+    tensor (FCRN) predicts depth, and the loss takes it at its one scale.
+    BerHu and the CE on the card run the CUDA kernels, on the CPU their
+    plain versions.
     """
     _not_ported(ema_decay=ema_decay, accum_steps=accum_steps > 1,
                 fake_quant=fake_quant, mesh=mesh)
@@ -97,6 +111,10 @@ def make_supervised_train_step(
 
     def compute_loss(out, depth_gt: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         if not classification:
+            if not isinstance(out, list):
+                # FCRN: one map of metric depth (Laina et al. train it with
+                # BerHu on depth); on the card a grouped BerHu of one problem
+                return loss_fn(out[..., 0], depth_gt, mask)
             return multiscale_supervised_loss(disps_to_depths(out), depth_gt, mask, loss_fn)
         if isinstance(out, list):
             return multiscale_classification_loss(out, depth_gt, mask, bins, ce_fn=ce_fn)
@@ -240,10 +258,7 @@ def make_eval_step(model: torch.nn.Module, classification: bool = False,
             img = normalize_images(img, aug.mean, aug.std)
         model.eval()
         out = model(img)
-        if classification:
-            depth = logits_to_depth(out[0] if isinstance(out, list) else out, bins)
-        else:
-            depth = 1.0 / out[0][..., 0]
+        depth = output_depth(out, bins if classification else None)
         gt = depth_to_float(batch["depth"])
         return compute_errors(gt, depth, (gt > 0) & (gt < max_depth))
 

@@ -22,10 +22,10 @@ from supervised_dispnet_tpu_torch.data.augment import AugmentConfig, normalize_i
 from supervised_dispnet_tpu_torch.data.loader import BatchLoader
 from supervised_dispnet_tpu_torch.data.packed import (
     PackedSequenceDataset, PackedValidationSet, is_packed)
-from supervised_dispnet_tpu_torch.losses.classification import DepthBins, logits_to_depth
+from supervised_dispnet_tpu_torch.losses.classification import DepthBins
 from supervised_dispnet_tpu_torch.training.train_step import (
     SUPERVISED_LOSSES, make_eval_step, make_selfsup_eval_step, make_selfsup_train_step,
-    make_supervised_train_step)
+    make_supervised_train_step, output_depth)
 from supervised_dispnet_tpu_torch.utils.device import resolve_device, set_fp32_math
 from supervised_dispnet_tpu_torch.utils.logging import (
     AverageMeter, CsvLogger, JsonlLogger, TermLogger)
@@ -177,16 +177,15 @@ class Trainer:
     @torch.no_grad()
     def predict(self, images) -> np.ndarray:
         """(B, H, W, 3) images in [0, 1] -> (B, H, W) finest-scale disparity;
-        for the classification head, 1 / max(decoded depth, 1e-3)."""
+        for the classification head and for a depth network (FCRN), 1 /
+        max(depth, 1e-3)."""
         imgs = torch.as_tensor(np.asarray(images, np.float32), device=self.device)
         self.model.eval()
         out = self.model(normalize_images(imgs, self.aug.mean, self.aug.std))
-        if self.classification:
-            depth = logits_to_depth(out[0] if isinstance(out, list) else out, self.bins)
-            disp = 1.0 / depth.clamp(min=1e-3)
-        else:
-            disp = out[0][..., 0]
-        return disp.cpu().numpy()
+        if isinstance(out, list) and not self.classification:
+            return out[0][..., 0].cpu().numpy()
+        depth = output_depth(out, self.bins if self.classification else None)
+        return (1.0 / depth.clamp(min=1e-3)).cpu().numpy()
 
     # -- data ---------------------------------------------------------------
     def make_loaders(self) -> tuple[BatchLoader, BatchLoader]:

@@ -8,7 +8,9 @@ emits with its default name map, which are the reference checkpoint's, so
 the port loads either with ``load_state_dict(strict=True)``.
 ``dispnet_from_jax`` and ``posexpnet_from_jax`` do the same for DispNetS and
 PoseExpNet, under the names ``utils/checkpoint.py::convert_dispnet`` and
-``convert_pose_exp_net`` read.
+``convert_pose_exp_net`` read; ``disp_vgg_bn_from_jax`` and ``fcrn_from_jax``
+for DispVggBN and FCRN, under the names ``utils/convert_models.py::
+convert_network`` reads.
 """
 
 from __future__ import annotations
@@ -43,6 +45,32 @@ def _put(sd: dict, prefix: str, leaf: dict, transpose: bool = False) -> None:
     sd[f"{prefix}.bias"] = _t(leaf["bias"])
 
 
+def _put_bn(sd: dict, prefix: str, p: dict, s: dict) -> None:
+    sd[f"{prefix}.weight"] = _t(p["scale"])
+    sd[f"{prefix}.bias"] = _t(p["bias"])
+    sd[f"{prefix}.running_mean"] = _t(s["mean"])
+    sd[f"{prefix}.running_var"] = _t(s["var"])
+
+
+def _put_resnet(sd: dict, prefix: str, ep: dict, es: dict, depth: int) -> None:
+    """A JAX ``ResNetEncoder``'s params / batch_stats under ``prefix``, in
+    torchvision's layout."""
+    sd[f"{prefix}conv1.weight"] = j2t_conv(ep["conv1"]["kernel"])
+    _put_bn(sd, f"{prefix}bn1", ep["bn1"], es["bn1"])
+    block_cls, stage_sizes, _ = RESNET_SPECS[depth]
+    n_convs = 3 if block_cls.expansion == 4 else 2
+    for stage, n_blocks in enumerate(stage_sizes):
+        for b in range(n_blocks):
+            jp, js = ep[f"layer{stage + 1}_{b}"], es[f"layer{stage + 1}_{b}"]
+            block = f"{prefix}layer{stage + 1}.{b}"
+            for c in range(1, n_convs + 1):
+                sd[f"{block}.conv{c}.weight"] = j2t_conv(jp[f"conv{c}"]["kernel"])
+                _put_bn(sd, f"{block}.bn{c}", jp[f"bn{c}"], js[f"bn{c}"])
+            if "downsample_conv" in jp:
+                sd[f"{block}.downsample.0.weight"] = j2t_conv(jp["downsample_conv"]["kernel"])
+                _put_bn(sd, f"{block}.downsample.1", jp["downsample_bn"], js["downsample_bn"])
+
+
 def dispresnet_from_jax(params: dict, batch_stats: dict, depth: int = 18,
                         head: str = "disp",
                         multiscale_classification: bool = False) -> dict[str, torch.Tensor]:
@@ -52,30 +80,7 @@ def dispresnet_from_jax(params: dict, batch_stats: dict, depth: int = 18,
     ``predict_class{s+1}.0``: the names of the JAX package's
     ``DispResNetNameMap.bin_head`` / ``bin_head_scale``."""
     sd: dict[str, torch.Tensor] = {}
-    ep, es = params["encoder"], batch_stats["encoder"]
-
-    def put_bn(prefix: str, p: dict, s: dict) -> None:
-        sd[f"{prefix}.weight"] = _t(p["scale"])
-        sd[f"{prefix}.bias"] = _t(p["bias"])
-        sd[f"{prefix}.running_mean"] = _t(s["mean"])
-        sd[f"{prefix}.running_var"] = _t(s["var"])
-
-    sd["encoder.conv1.weight"] = j2t_conv(ep["conv1"]["kernel"])
-    put_bn("encoder.bn1", ep["bn1"], es["bn1"])
-    block_cls, stage_sizes, _ = RESNET_SPECS[depth]
-    n_convs = 3 if block_cls.expansion == 4 else 2
-    for stage, n_blocks in enumerate(stage_sizes):
-        for b in range(n_blocks):
-            jax_name = f"layer{stage + 1}_{b}"
-            prefix = f"encoder.layer{stage + 1}.{b}"
-            for c in range(1, n_convs + 1):
-                sd[f"{prefix}.conv{c}.weight"] = j2t_conv(ep[jax_name][f"conv{c}"]["kernel"])
-                put_bn(f"{prefix}.bn{c}", ep[jax_name][f"bn{c}"], es[jax_name][f"bn{c}"])
-            if "downsample_conv" in ep[jax_name]:
-                sd[f"{prefix}.downsample.0.weight"] = j2t_conv(
-                    ep[jax_name]["downsample_conv"]["kernel"])
-                put_bn(f"{prefix}.downsample.1", ep[jax_name]["downsample_bn"],
-                       es[jax_name]["downsample_bn"])
+    _put_resnet(sd, "encoder.", params["encoder"], batch_stats["encoder"], depth)
     for i in range(5):
         _put(sd, f"upconv{i}.0", params[f"upconv{i}_0"]["Conv_0"])
         _put(sd, f"iconv{i}.0", params[f"upconv{i}_1"]["Conv_0"])
@@ -120,4 +125,49 @@ def posexpnet_from_jax(params: dict, output_exp: bool = True) -> dict[str, torch
                  transpose=True)
         for i in range(1, 5):
             _put(sd, f"predict_mask{i}", params[f"predict_mask{i}"])
+    return sd
+
+
+# torchvision vgg16_bn ``features`` index of each stage's convs (BN at + 1)
+VGG16_BN_CONV_IDX = ((0, 3), (7, 10), (14, 17, 20), (24, 27, 30), (34, 37, 40))
+
+
+def disp_vgg_bn_from_jax(params: dict, batch_stats: dict) -> dict[str, torch.Tensor]:
+    """JAX DispVggBN ``params`` / ``batch_stats`` -> the port's ``DispVggBN``
+    state dict, under the names ``utils/convert_models.py::
+    convert_disp_vgg_bn`` reads with its default ``DispVggNameMap``
+    (``encoder.features.{n}``, ``upconv{k}.0``, ``iconv{k}.0``,
+    ``predict_disp{s}.0``). The fused and unfused JAX models share one tree."""
+    sd: dict[str, torch.Tensor] = {}
+    for s, idxs in enumerate(VGG16_BN_CONV_IDX):
+        sp, ss = params[f"stage{s}"], batch_stats[f"stage{s}"]
+        for c, idx in enumerate(idxs):
+            _put(sd, f"encoder.features.{idx}", sp[f"conv{c}"])
+            _put_bn(sd, f"encoder.features.{idx + 1}", sp[f"bn{c}"], ss[f"bn{c}"])
+    for k in range(5):
+        _put(sd, f"upconv{k}.0", params[f"up{k}_0"])
+        _put(sd, f"iconv{k}.0", params[f"up{k}_1"])
+    for s in range(4):
+        _put(sd, f"predict_disp{s + 1}.0", params[f"disp_head{s}"]["Conv_0"])
+    return sd
+
+
+def fcrn_from_jax(params: dict, batch_stats: dict) -> dict[str, torch.Tensor]:
+    """JAX FCRN ``params`` / ``batch_stats`` -> the port's ``FCRN`` state
+    dict, under the names ``utils/convert_models.py::convert_fcrn`` reads
+    with its default ``FCRNNameMap``: the ResNet-50 at the root, ``conv2``,
+    ``bn2``, ``up{n}`` (``conv_a`` / ``bn_a`` -> ``conv1`` / ``bn1``,
+    ``conv_a2`` / ``bn_a2`` -> 2, ``conv_b`` / ``bn_b`` -> 3), ``conv3``. The
+    input-dilated conv's kernel is the unpooled map's conv kernel as it is."""
+    sd: dict[str, torch.Tensor] = {}
+    _put_resnet(sd, "", params["encoder"], batch_stats["encoder"], 50)
+    _put(sd, "conv2", params["conv2"])
+    _put_bn(sd, "bn2", params["bn2"], batch_stats["bn2"])
+    for i in range(4):
+        up, ups = params[f"up{i}"], batch_stats[f"up{i}"]
+        for ours, conv, bn in ((1, "conv_a", "bn_a"), (2, "conv_a2", "bn_a2"),
+                               (3, "conv_b", "bn_b")):
+            _put(sd, f"up{i + 1}.conv{ours}", up[conv])
+            _put_bn(sd, f"up{i + 1}.bn{ours}", up[bn], ups[bn])
+    _put(sd, "conv3", params["conv3"])
     return sd

@@ -82,10 +82,19 @@ def _unfilter(filtered: np.ndarray, filters: np.ndarray, bpp: int) -> np.ndarray
 
 
 def read_png(path: str | Path) -> np.ndarray:
-    """Decode an 8-bit PNG: (H, W) for grey, (H, W, C) for grey+alpha (C=2),
-    RGB (3) and RGBA (4), uint8."""
-    data = Path(path).read_bytes()
-    if not data.startswith(_SIGNATURE):
+    """Decode an 8-bit PNG file: (H, W) for grey, (H, W, C) for grey+alpha
+    (C=2), RGB (3) and RGBA (4), uint8."""
+    return decode_png(Path(path).read_bytes(), path)
+
+
+def is_png(data: bytes) -> bool:
+    """Whether ``data`` starts with the PNG signature."""
+    return data.startswith(_SIGNATURE)
+
+
+def decode_png(data: bytes, path: str | Path = "<bytes>") -> np.ndarray:
+    """``read_png`` of the bytes of a PNG file; ``path`` names it in errors."""
+    if not is_png(data):
         raise ValueError(f"{path}: not a PNG file")
     header, idat = None, []
     for kind, payload in _chunks(data, path):
@@ -105,7 +114,10 @@ def read_png(path: str | Path) -> np.ndarray:
     if color not in _CHANNELS or compression or filter_method:
         raise ValueError(f"{path}: unsupported PNG header {header}")
     C = _CHANNELS[color]
-    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    try:
+        raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    except zlib.error as e:
+        raise ValueError(f"{path}: corrupt PNG data ({e})") from None
     if raw.size != H * (W * C + 1):
         raise ValueError(f"{path}: PNG data holds {raw.size} bytes, "
                          f"expected {H * (W * C + 1)}")
@@ -165,3 +177,13 @@ def write_png(path: str | Path, img: np.ndarray, filter_type: int = 0) -> None:
     Path(path).write_bytes(_SIGNATURE + chunk(b"IHDR", ihdr)
                            + chunk(b"IDAT", zlib.compress(raw.tobytes(), 6))
                            + chunk(b"IEND", b""))
+
+
+def as_rgb(img: np.ndarray) -> np.ndarray:
+    """(H, W, 3) RGB of a decoded image, as ``cv2.imread``'s colour mode
+    gives it: grey replicated, alpha dropped."""
+    if img.ndim == 2:
+        img = img[:, :, None]
+    if img.shape[2] in (1, 2):  # grey, grey + alpha
+        img = np.repeat(img[:, :, :1], 3, axis=2)
+    return img[:, :, :3]

@@ -185,3 +185,24 @@ def test_fused_geometry_must_be_exact_2x():
             model(torch.zeros(1, 48, 96, 3))
     with pytest.raises(ValueError, match="disp_res"):
         get_disp_net("dispnet", fused_upsample=True, device="cpu")
+
+
+def test_cached_taps_survive_a_first_call_under_inference_mode():
+    """The tent taps are cached a device and dtype. A process whose first
+    fused forward runs under ``torch.inference_mode()`` (the eval CLIs, a
+    serving process) and later trains must get taps that autograd may save:
+    a fused DispResNet forward and backward after it runs, with finite
+    gradients (their values: ``test_fused_dispresnet_gradients_match_the_
+    unfused_port``)."""
+    from supervised_dispnet_tpu_torch.ops import fused_upconv
+
+    fused_upconv._tent.cache_clear()
+    fused = get_disp_net("disp_res_18", fused_upsample=True, seed=3, device="cpu")
+    x = torch.tensor(np.random.default_rng(7).uniform(-1, 1, (1, 32, 64, 3)),
+                     dtype=torch.float32)
+    with torch.inference_mode():
+        fused.eval()(x)
+    assert not any(t.is_inference() for t in (
+        fused_upconv._tent(n, torch.device("cpu"), torch.float32) for n in (1, 2)))
+    grads = torch.autograd.grad(_port_loss(fused.train()(x)), list(fused.parameters()))
+    assert all(torch.isfinite(g).all() for g in grads)

@@ -15,12 +15,15 @@ import torch
 
 import supervised_dispnet_tpu_torch
 from supervised_dispnet_tpu_torch.cli import run_inference as run_inference_cli
+from supervised_dispnet_tpu_torch.cli import serve as serve_cli
 from supervised_dispnet_tpu_torch.cli import test_disp as test_disp_cli
+from supervised_dispnet_tpu_torch.cli import test_pose as test_pose_cli
 from supervised_dispnet_tpu_torch.cli import train as train_cli
 from supervised_dispnet_tpu_torch.data.packed import write_split
 from supervised_dispnet_tpu_torch.models import DispNetS, DispResNet, PoseExpNet, get_disp_net
 from supervised_dispnet_tpu_torch.ops.cuda import losses as kl
 from supervised_dispnet_tpu_torch.ops.cuda import warp as kw
+from supervised_dispnet_tpu_torch.serving import DepthService
 from supervised_dispnet_tpu_torch.training.trainer import (
     BEST_NAME, CHECKPOINT_NAME, POSE_BEST_NAME, POSE_CHECKPOINT_NAME, Trainer,
     TrainerConfig)
@@ -57,8 +60,8 @@ def fresh_import() -> list[str]:
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
                          capture_output=True, text=True, timeout=300).stdout
     loaded = json.loads(out.splitlines()[-1])
-    assert "supervised_dispnet_tpu_torch.training.trainer" in loaded
-    assert "supervised_dispnet_tpu_torch.cli.test_disp" in loaded
+    for mod in ("training.trainer", "cli.test_disp", "cli.test_pose", "cli.serve", "serving"):
+        assert f"supervised_dispnet_tpu_torch.{mod}" in loaded
     return loaded
 
 
@@ -123,6 +126,13 @@ def test_entry_points_need_the_card_unless_asked_for_the_cpu(tmp_path):
     with pytest.raises(RuntimeError, match="--device cpu"):
         run_inference_cli.main(["--pretrained", str(tmp_path / "x.pth.tar"),
                                 "--dataset-dir", str(tmp_path), "--output-dir", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        test_pose_cli.main(["--pretrained-posenet", str(tmp_path / "x.pth.tar"),
+                            "--dataset-dir", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        serve_cli.main(["--pretrained", str(tmp_path / "x.pth.tar")])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        DepthService(DispNetS())
     assert get_disp_net("disp_res_18", device="cpu").encoder.conv1.weight.device.type == "cpu"
 
 
@@ -150,7 +160,8 @@ def test_card_math_is_full_fp32_unless_tf32_is_asked_for(tf32_flags):
 
 @pytest.mark.parametrize("cli,argv,err", [
     ("train", ["--bf16"], "--bf16"), ("train", ["--qat"], "--qat"),
-    ("train", ["--network", "disp_vgg_bn"], "disp_vgg_bn"),
+    pytest.param("train", ["--network", "disp_vgg_bn", "--pretrained-encoder", "enc.pth"],
+                 "--pretrained-encoder", id="train-argv2-disp_vgg_bn"),
     ("train", ["--loss", "selfsup", "--half-res-photo"], "--half-res-photo"),
     ("test_disp", ["--int8"], "--int8"),
 ])
