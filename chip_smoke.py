@@ -95,6 +95,23 @@ Phases; any failure exits non-zero:
        time and profile, their eval forward at (8, 3, 128, 416) card
        against CPU (VGG-BN fused against unfused too) with its time and
        profile, and FCRN's folder inference, card against CPU;
+     - the trainer's options: DispResNet-50 BerHu through
+       ``cli.train.main`` at 128x416, B=4, with ``--bf16 --ema-decay 0.999
+       --accum-steps 2 --hue 0.1 --imagenet-normalization
+       --pretrained-encoder`` (a seeded torchvision-layout ResNet-50 written
+       here), one epoch of 4 updates, then ``--resume`` for a second (BerHu
+       2 + 2 launches an update, float32 inputs at every kernel entry; the
+       resumed run continues the first's step, EMA shadow and generator);
+       the BerHu, classification, self-supervised and VGG-BN steps in fp32
+       and bf16 side by side (img/s from CUDA events, launches a step, busy
+       ms, the bf16 kernels in the profile); one bf16 DispResNet-50 step,
+       card against CPU (loss rel 1e-2, decoder and heads' gradients rel-L2
+       0.1, the encoder's finite with their norm within 2x); remat none /
+       full / conv at B=4 and 32 (peak memory, step ms; the same loss,
+       gradients and BN statistics); ``--debug-nans`` on a NaN batch and
+       ``--profile-steps 2``; what the casts of ``--bf16`` cost
+       DispResNet-50's step (a cast a conv, BN in fp32 as well, or one
+       multi-tensor cast a forward, beside fp32, in turns);
      - ``ops.warp.inverse_warp`` with its default ``diff_img=True`` and a
        backward into the image, depth and pose (the image+coordinate
        backward's path), against the plain sampler on the card;
@@ -109,8 +126,8 @@ Phases; any failure exits non-zero:
      and FCRN BerHu steps against the CPU;
   5. a JSON line of the slice and cross-check numbers, a JSON line of the
      eval and inference numbers, a JSON line of the pose, serving and
-     network numbers, a JSON line of kernel numbers, the card line, and as
-     the last line
+     network numbers, a JSON line of the training options' numbers, a JSON
+     line of kernel numbers, the card line, and as the last line
      ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX: the machine with the card has none.
@@ -774,17 +791,13 @@ def ce_phase(torch, device: str = "cuda") -> dict:
         "bwd_lib": cuda_ms(torch, lambda: torch.autograd.grad(
             lib_loss, lib_in, retain_graph=True)),
     }
-    # device time a launch; "" matches every device event of the call, so a
-    # memset or another kernel would show as more events than the kernel's,
-    # and a second launch as ~2 a call (the profiler may miss an event of
-    # the 100: 0.99 a call)
-    dev = {}
-    for key, fn, kernel in (("fwd", fwd, "ce_forward_kernel"),
-                            ("bwd", bwd, "ce_backward_kernel")):
-        got = device_us(torch, fn, [kernel, ""], reps=100)
-        if got[""][1] != got[kernel][1] or round(got[kernel][1]) != 1:
-            raise AssertionError(f"ce {key}: {got} device events a call, not one {kernel}")
-        dev[key] = got[kernel][0]
+    # device time a launch, from a profile with one event of the kernel a
+    # call and no other device event (a memset or another kernel would show
+    # as more events, a second launch as ~2 a call); the profiler can drop
+    # events, so a profile that shows fewer is taken again
+    dev = {key: launch_device_us(torch, fn, [kernel])[kernel]
+           for key, fn, kernel in (("fwd", fwd, "ce_forward_kernel"),
+                                   ("bwd", bwd, "ce_backward_kernel"))}
     bounds = ce_bounds(N, K)
     print(f"  ce {main}: fwd kernel_ms {t['fwd']:.5f} device_us {dev['fwd']:.2f} plain_ms "
           f"{t['fwd_plain']:.5f} cross_entropy_ms {t['fwd_lib']:.5f}; bwd kernel_ms "
@@ -2220,6 +2233,534 @@ def networks_phase(torch, tmp: Path, card: str, tree: Path) -> dict:
     return out
 
 
+# the trainer's options (slice 6): the flags of the run through the CLI
+OPTION_FLAGS = ("--bf16", "--ema-decay", "0.999", "--accum-steps", "2", "--hue", "0.1",
+                "--imagenet-normalization")
+OPTION_UPDATES = 4  # an epoch of 4 updates of 2 micro-batches
+# (label, network, loss, the kernel counters of one step's launches each way)
+BF16_STEPS = (
+    ("DispResNet-50 BerHu", "disp_res_50", "berhu", ("berhu_fwd_launches",
+                                                     "berhu_bwd_launches")),
+    ("DispResNet-50 classification", "disp_res_50", "classification",
+     ("ce_fwd_launches", "ce_bwd_launches")),
+    ("DispNetS + PoseExpNet selfsup", "dispnet", "selfsup",
+     ("warp_fwd_launches", "warp_bwd_coords_launches")),
+    ("VGG-BN BerHu", "disp_vgg_bn", "berhu", ("berhu_fwd_launches", "berhu_bwd_launches")),
+)
+REMAT_BATCHES = (4, 32)
+
+
+def write_resnet_pth(torch, path: Path, depth: int = 50, seed: int = 5) -> dict:
+    """A torchvision-layout ResNet state dict from ``seed``, as a user's
+    ImageNet ``.pth`` is laid out: random weights, BN statistics away from
+    0 / 1, a 1000-way ``fc``."""
+    from supervised_dispnet_tpu_torch.models.resnet import ResNetEncoder
+
+    g = torch.Generator().manual_seed(seed)
+    enc = ResNetEncoder(depth)
+    enc.init_weights(g)
+    with torch.no_grad():
+        for name, b in enc.named_buffers():
+            if name.endswith("running_mean"):
+                b.normal_(0.0, 0.1, generator=g)
+            elif name.endswith("running_var"):
+                b.uniform_(0.5, 1.5, generator=g)
+    sd = {**enc.state_dict(),
+          "fc.weight": 0.01 * torch.randn(1000, enc.feature_channels[-1], generator=g),
+          "fc.bias": torch.zeros(1000)}
+    torch.save(sd, path)
+    return sd
+
+
+@contextlib.contextmanager
+def kernel_input_dtypes(torch):
+    """{entry: the dtypes of the floating tensors handed to it} for the
+    training steps' kernel entries (the grouped BerHu, the CE, the grouped
+    warp), while the block runs; each entry is called through."""
+    from supervised_dispnet_tpu_torch.ops.cuda import classification as kc
+    from supervised_dispnet_tpu_torch.ops.cuda import losses as kl
+    from supervised_dispnet_tpu_torch.ops.cuda import warp as kw
+
+    seen: dict[str, set] = {}
+    entries = [(kl, "berhu_forward_many"), (kl, "berhu_backward_many"), (kc, "ce_forward"),
+               (kc, "ce_backward"), (kw, "warp_forward_many"),
+               (kw, "warp_backward_coords_many")]
+
+    def record(name, fn):
+        def wrapper(*args, **kwargs):
+            flat = [t for a in (*args, *kwargs.values())
+                    for t in (a if isinstance(a, (list, tuple)) else [a])]
+            seen.setdefault(name, set()).update(
+                str(t.dtype) for t in flat
+                if isinstance(t, torch.Tensor) and t.is_floating_point())
+            return fn(*args, **kwargs)
+        return wrapper
+
+    saved = [(m, n, getattr(m, n)) for m, n in entries]
+    for m, n, fn in saved:
+        setattr(m, n, record(n, fn))
+    try:
+        yield seen
+    finally:
+        for m, n, fn in saved:
+            setattr(m, n, fn)
+
+
+def _options_run(torch, argv: list, epochs: int, *extra: str):
+    """``cli.train.main`` with the BerHu counters zeroed just before it;
+    returns (trainer, launches, printed text)."""
+    from supervised_dispnet_tpu_torch.cli import train as train_cli
+    from supervised_dispnet_tpu_torch.ops.cuda import losses as kl
+
+    tee = _Tee(sys.stdout)
+    kl.berhu_fwd_launches = kl.berhu_bwd_launches = kl.berhu_fwd_problems = 0
+    with contextlib.redirect_stdout(tee):
+        trainer = train_cli.main([*argv, "--epochs", str(epochs), *extra])
+    torch.cuda.synchronize()
+    return trainer, {"berhu_fwd": kl.berhu_fwd_launches, "berhu_bwd": kl.berhu_bwd_launches,
+                     "berhu_fwd_problems": kl.berhu_fwd_problems}, tee.buf.getvalue()
+
+
+def options_run_phase(torch, tmp: Path, device: str = "cuda") -> dict:
+    """DispResNet-50 BerHu through ``cli.train.main`` at 128x416, B=4, with
+    the trainer's options on (``OPTION_FLAGS`` and ``--pretrained-encoder``
+    of a torchvision-layout ResNet-50 written here): one epoch of 4 updates
+    of 2 micro-batches, then ``--resume`` for a second. BerHu launches 1 + 1
+    a micro-step (2 + 2 an update), of 4 problems, and every kernel entry
+    is handed float32 under ``--bf16``; the second run continues the first's
+    run directory, step, EMA shadow and generator (its checkpoint, copied
+    before the resume, restores to the first run's end state)."""
+    import shutil
+
+    from supervised_dispnet_tpu_torch.cli import train as train_cli
+    from supervised_dispnet_tpu_torch.models import get_disp_net
+    from supervised_dispnet_tpu_torch.training.trainer import Trainer
+
+    B, H, W = MAIN_SHAPE
+    k = 2
+    write_packed(tmp / "data", np.random.default_rng(20), H, W, n_train=OPTION_UPDATES * k * B)
+    enc = write_resnet_pth(torch, tmp / "resnet50.pth")
+    model = get_disp_net("disp_res_50", device="cpu")
+    train_cli.load_pretrained_encoder(model, tmp / "resnet50.pth", "disp_res_50")
+    if not all(torch.equal(v, enc[n]) for n, v in model.encoder.state_dict().items()):
+        raise AssertionError("--pretrained-encoder: the encoder does not hold the file")
+    argv = [str(tmp / "data"), "--network", "disp_res_50", "--loss", "berhu", "-b", str(B),
+            "--epoch-size", str(OPTION_UPDATES * k), "--with-gt", *OPTION_FLAGS,
+            "--pretrained-encoder", str(tmp / "resnet50.pth"), "--device", device,
+            "--checkpoints-dir", str(tmp / "ckpt"), "--name", "options"]
+    t0 = time.perf_counter()
+    with kernel_input_dtypes(torch) as dtypes:
+        first, launches, _ = _options_run(torch, argv, 1)
+    first_s = time.perf_counter() - t0
+    micro = first.update.micro_step
+    want = {"berhu_fwd": micro, "berhu_bwd": micro, "berhu_fwd_problems": 4 * micro}
+    print(f"  options run: {first.step} updates of {k} micro-steps, launches {launches}, "
+          f"kernel inputs {dict((n, sorted(d)) for n, d in dtypes.items())}, "
+          f"{first_s:.1f} s", flush=True)
+    if first.step != OPTION_UPDATES or micro != k * OPTION_UPDATES or launches != want:
+        raise AssertionError(f"options run: {first.step} updates, {micro} micro-steps, "
+                             f"launches {launches} (want {want})")
+    if set(dtypes) != {"berhu_forward_many", "berhu_backward_many"} or any(
+            d != {"torch.float32"} for d in dtypes.values()):
+        raise AssertionError(f"under --bf16 the BerHu kernels were handed {dtypes}")
+    run = Path(first.cfg.save_path)
+    end0 = {"ema": [e.cpu().clone() for e in first.update.ema],
+            "generator": first.generator.get_state(), "micro_step": micro}
+    shutil.copytree(run, tmp / "epoch0")
+
+    second, launches2, text = _options_run(torch, argv, 2, "--resume")
+    micro2 = second.update.micro_step
+    print(f"  options resume: {second.cfg.save_path}, {second.step} updates, launches "
+          f"{launches2}", flush=True)
+    if (Path(second.cfg.save_path) != run or micro2 != 2 * micro or launches2 != want
+            or f"resumed after epoch 0 (train step {micro}" not in text):
+        raise AssertionError(f"--resume: run {second.cfg.save_path} (first {run}), "
+                             f"{micro2} micro-steps, launches {launches2}")
+    events = [json.loads(line) for line in (run / "metrics.jsonl").read_text().splitlines()]
+    steps = [e["step"] for e in events if e["event"] == "train_iter"]
+    epochs = [e for e in events if e["event"] == "epoch"]
+    losses = [e["loss"] for e in events if e["event"] == "train_iter"]
+    if (steps != list(range(1, 2 * micro + 1)) or [e["epoch"] for e in epochs] != [0, 1]
+            or not all(math.isfinite(v) for v in losses)
+            or not all(math.isfinite(e["abs_rel"]) for e in epochs)):
+        raise AssertionError(f"--resume: steps {steps}, epochs {epochs}")
+    restored = Trainer(second.cfg, get_disp_net("disp_res_50", device=device), device=device)
+    if restored.restore(tmp / "epoch0")["epoch"] != 0:
+        raise AssertionError("the epoch-0 checkpoint is not epoch 0's")
+    if (restored.update.micro_step != end0["micro_step"]
+            or not torch.equal(restored.generator.get_state(), end0["generator"])
+            or not all(torch.equal(a.cpu(), b)
+                       for a, b in zip(restored.update.ema, end0["ema"]))):
+        raise AssertionError("the epoch-0 checkpoint does not hold the first run's step, "
+                             "EMA shadow and generator")
+    return {"launches_per_update": {n: v / first.step for n, v in launches.items()},
+            "kernel_input_dtypes": {n: sorted(d) for n, d in dtypes.items()},
+            "first_run_s": first_s, "train_losses": losses,
+            "val_abs_rel": [e["abs_rel"] for e in epochs]}
+
+
+def bf16_steps_phase(torch, tmp: Path, card: str) -> dict:
+    """The four training steps (``BF16_STEPS``) at 128x416, B=4, in fp32 and
+    with ``--bf16``, side by side on one batch: img/s from CUDA events over
+    20 steps (``utils/profiling.py::steady_state_images_per_sec``), each
+    kernel's launches a step (the same in both), the heads' outputs float32
+    under bf16, and a profile (busy ms; the bf16 step's kernels in bf16)."""
+    from supervised_dispnet_tpu_torch.models import PoseExpNet, get_disp_net
+    from supervised_dispnet_tpu_torch.training.trainer import Trainer, TrainerConfig
+    from supervised_dispnet_tpu_torch.utils.profiling import steady_state_images_per_sec
+
+    B, H, W = MAIN_SHAPE
+    write_packed(tmp / "data", np.random.default_rng(21), H, W)
+    out = {}
+    for label, net, loss, counted in BF16_STEPS:
+        row = {}
+        for bf16 in (False, True):
+            head = "classification" if loss == "classification" else "disp"
+            model = get_disp_net(net, head=head, seed=3)
+            pose = (PoseExpNet(generator=torch.Generator().manual_seed(4))
+                    if loss == "selfsup" else None)
+            trainer = Trainer(TrainerConfig(data=str(tmp / "data"), loss=loss, batch_size=B,
+                                            bf16=bf16, save_path=str(tmp / "run")),
+                              model, pose)
+            loader = iter(trainer.make_loaders()[0])
+            batch = trainer.prep_train_batch(next(loader))
+            loader.close()
+            heads = set()
+            hook = trainer.model.register_forward_hook(lambda m, i, o: heads.update(
+                str(t.dtype) for t in (o if isinstance(o, list) else [o])))
+            for mod, attr in kernel_counters():
+                setattr(mod, attr, 0)
+            ips = steady_state_images_per_sec(lambda: trainer.train_step(batch), B,
+                                              trainer.device, iters=20, warmup=3)
+            hook.remove()
+            per_step = {a: getattr(m, a) / 23 for m, a in kernel_counters() if a in counted}
+            prof = profile_steps(torch, lambda: trainer.train_step(batch), n=5, top=6,
+                                 count=("bf16", "BFloat16"))
+            tag = "bf16" if bf16 else "fp32"
+            print(f"  {label} {tag}: {B / ips * 1e3:.3f} ms a step, {ips:.1f} img/s, busy "
+                  f"{prof['busy_ms_per_step']:.3f} ms; launches a step {per_step}; heads "
+                  f"{sorted(heads)}; bf16 kernels a step {prof['counts']}, on {card}",
+                  flush=True)
+            if set(per_step.values()) != {1.0} or heads != {"torch.float32"}:
+                raise AssertionError(f"{label} {tag}: launches a step {per_step}, heads "
+                                     f"{heads}")
+            if (sum(prof["counts"].values()) > 0) != bf16:
+                raise AssertionError(f"{label} {tag}: bf16 kernels {prof['counts']}")
+            row[tag] = {"step_ms": B / ips * 1e3, "img_per_s": ips,
+                        "busy_ms": prof["busy_ms_per_step"], "launches": per_step,
+                        "profile": prof}
+            del trainer, model, pose, batch
+            torch.cuda.empty_cache()
+        out[label] = row
+    return out
+
+
+def bf16_cross_check(torch) -> dict:
+    """One DispResNet-50 BerHu step with a bf16 trunk from identical weights
+    on one batch, augmentation off: the card (kernels) against the CPU
+    (plain versions). The loss within rel 1e-2 and the decoder's and heads'
+    gradients within 0.1 by relative L2 (all of them as one vector): two
+    bf16 implementations round a value near a tie differently. The
+    encoder's gradients are not fixed by the inputs in bf16: a randomly
+    initialised ResNet-50's train-mode BNs amplify a 1e-6 change of one
+    weight into ~2% of them, bf16's ~4e-3 roundings into ~100% (the CPU's
+    own bf16 step against its fp32 step, measured here beside them). They
+    are held to be finite and to keep their norm within 2x."""
+    from supervised_dispnet_tpu_torch.models import DispResNet
+    from supervised_dispnet_tpu_torch.models.common import set_compute_dtype
+
+    B, H, W = MAIN_SHAPE
+    rng = np.random.default_rng(22)
+    depth = rng.uniform(1.0, 80.0, (B, H, W)) * (rng.uniform(size=(B, H, W)) < 0.1)
+    batch = {"tgt": rng.integers(0, 256, (B, H, W, 3), dtype=np.uint8),
+             "intrinsics": np.tile(np.eye(3, dtype=np.float32), (B, 1, 1)),
+             "depth": depth.astype(np.float16)}
+    base = DispResNet(50, generator=torch.Generator().manual_seed(3))
+    l_32, g_32 = _one_step(torch, copy.deepcopy(base), batch, "cpu", plain=True)
+    set_compute_dtype(base, torch.bfloat16)
+    t0 = time.perf_counter()
+    l_card, g_card = _one_step(torch, copy.deepcopy(base).to("cuda"), batch, "cuda")
+    l_cpu, g_cpu = _one_step(torch, copy.deepcopy(base), batch, "cpu", plain=True)
+    cpu_s = time.perf_counter() - t0
+
+    def rel(a, b, names):
+        return _rel_l2(torch.cat([a[n].flatten() for n in names]),
+                       torch.cat([b[n].flatten() for n in names]))
+
+    enc = [n for n in g_cpu if n.startswith("encoder.")]
+    dec = [n for n in g_cpu if not n.startswith("encoder.")]
+    loss_rel = abs(l_card / l_cpu - 1)
+    out = {"loss": [l_card, l_cpu], "loss_rel": loss_rel,
+           "decoder_heads_rel_l2": rel(g_card, g_cpu, dec),
+           "encoder_rel_l2": rel(g_card, g_cpu, enc),
+           "encoder_norm_ratio": float(torch.cat([g_card[n].flatten() for n in enc]).norm()
+                                       / torch.cat([g_cpu[n].flatten() for n in enc]).norm()),
+           "cpu_bf16_vs_fp32": {"loss_rel": abs(l_cpu / l_32 - 1),
+                                "decoder_heads_rel_l2": rel(g_cpu, g_32, dec),
+                                "encoder_rel_l2": rel(g_cpu, g_32, enc)}}
+    finite = all(bool(torch.isfinite(g_card[n]).all()) for n in g_card)
+    print(f"  bf16 cross-check DispResNet-50 card vs CPU: loss {l_card:.7g} / {l_cpu:.7g} "
+          f"(rel {loss_rel:.3g}, limit 1e-2); decoder and heads' gradients rel-L2 "
+          f"{out['decoder_heads_rel_l2']:.3g} (limit 0.1); encoder's rel-L2 "
+          f"{out['encoder_rel_l2']:.3g}, norm ratio {out['encoder_norm_ratio']:.3g} (limit "
+          f"0.5..2); the CPU's bf16 step vs its fp32 step: {out['cpu_bf16_vs_fp32']}; "
+          f"{cpu_s:.1f} s", flush=True)
+    if (loss_rel > 1e-2 or out["decoder_heads_rel_l2"] > 0.1 or not finite
+            or not 0.5 <= out["encoder_norm_ratio"] <= 2.0):
+        raise AssertionError(f"bf16 cross-check: {out}")
+    return out
+
+
+def remat_phase(torch, card: str) -> dict:
+    """One DispResNet-50 BerHu step (fp32, augmentation off) without remat
+    (twice), with ``"full"`` and with ``"conv"``, from identical weights, at
+    B=4 and B=32: peak ``max_memory_allocated`` of the step and its ms (CUDA
+    events over 5 steps); the loss within 1e-6, each BN running statistic
+    within 1e-6 (updated once, not again by the recompute) and each gradient
+    within 1e-5 rel-L2 of the step without remat, or within 4x what the
+    second step without remat differs by (the backward's atomics, upsample
+    and cuDNN, sum in another order each run); full remat's peak below
+    none's at B=32."""
+    from supervised_dispnet_tpu_torch.data.augment import AugmentConfig
+    from supervised_dispnet_tpu_torch.models import DispResNet
+    from supervised_dispnet_tpu_torch.models.common import set_remat
+    from supervised_dispnet_tpu_torch.training.train_step import make_supervised_train_step
+
+    _, H, W = MAIN_SHAPE
+    no_aug = AugmentConfig(flip=False, scale_crop=False, color_jitter=False)
+    base = DispResNet(50, generator=torch.Generator().manual_seed(3))
+    out = {}
+    for B in REMAT_BATCHES:
+        rng = np.random.default_rng(23)
+        depth = rng.uniform(1.0, 80.0, (B, H, W)) * (rng.uniform(size=(B, H, W)) < 0.1)
+        batch = {"tgt": torch.from_numpy(rng.integers(0, 256, (B, H, W, 3), dtype=np.uint8)),
+                 "intrinsics": torch.eye(3).expand(B, 3, 3).contiguous(),
+                 "depth": torch.from_numpy(depth.astype(np.float16))}
+        batch = {k: v.cuda() for k, v in batch.items()}
+        ref, rows, noise = None, {}, 0.0
+        for remat in ("none", "none again", "full", "conv"):
+            model = copy.deepcopy(base).cuda()
+            set_remat(model, None if remat.startswith("none") else remat)
+            opt = torch.optim.Adam(model.parameters(), lr=1e-4)
+            step = make_supervised_train_step(model, opt, "berhu", aug=no_aug)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
+            loss = float(step(batch)["loss"])
+            peak = torch.cuda.max_memory_allocated() - before
+            grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+            stats = {k: v.clone() for k, v in model.state_dict().items() if "running_" in k}
+            g_rel = s_rel = 0.0
+            if ref is None:
+                ref = (loss, grads, stats)
+            else:
+                g_rel = max(_rel_l2(grads[n], g) for n, g in ref[1].items())
+                s_rel = max(_rel_l2(stats[n], s) for n, s in ref[2].items())
+                noise = g_rel if remat == "none again" else noise
+                if (abs(loss / ref[0] - 1) > 1e-6 or s_rel > 1e-6
+                        or g_rel > max(1e-5, 4 * noise)):
+                    raise AssertionError(f"remat {remat} B={B}: loss {loss} vs {ref[0]}, "
+                                         f"gradients {g_rel} (none against none {noise}), "
+                                         f"BN statistics {s_rel}")
+            ms = cuda_ms(torch, lambda: step(batch), reps=5, warmup=1)
+            rows[remat] = {"peak_bytes": peak, "step_ms": ms, "loss": loss,
+                           "grad_rel_l2_max": g_rel, "bn_stats_rel_max": s_rel}
+            print(f"  remat {remat:10s} B={B}: peak {peak / 2**30:.3f} GiB above the model, "
+                  f"step {ms:.3f} ms, loss {loss:.7g}, gradients rel-L2 max {g_rel:.3g}, "
+                  f"BN statistics {s_rel:.3g}, on {card}", flush=True)
+            del model, opt, step, grads
+            torch.cuda.empty_cache()
+        if B == max(REMAT_BATCHES) and rows["full"]["peak_bytes"] >= rows["none"]["peak_bytes"]:
+            raise AssertionError(f"remat full does not lower the peak at B={B}: {rows}")
+        out[f"B{B}"] = rows
+    return out
+
+
+def debug_profile_phase(torch, tmp: Path) -> dict:
+    """``--debug-nans``: a step on a batch with one NaN pixel raises
+    ``FloatingPointError`` naming the step, and leaves the weights as they
+    were; ``--profile-steps 2`` through the CLI leaves a trace with the
+    card's kernels in it."""
+    from supervised_dispnet_tpu_torch.models import get_disp_net
+    from supervised_dispnet_tpu_torch.training.trainer import Trainer, TrainerConfig
+
+    B, H, W = MAIN_SHAPE
+    write_packed(tmp / "data", np.random.default_rng(24), H, W)
+    trainer = Trainer(TrainerConfig(data=str(tmp / "data"), batch_size=B, debug_nans=True,
+                                    save_path=str(tmp / "run")),
+                      get_disp_net("disp_res_50", seed=3))
+    loader = iter(trainer.make_loaders()[0])
+    batch = trainer.prep_train_batch(next(loader))
+    loader.close()
+    trainer.train_step(batch)
+    bad = dict(batch, tgt=batch["tgt"].float() / 255.0)
+    bad["tgt"][1, 5, 7, 0] = float("nan")
+    before = [p.detach().clone() for p in trainer.model.parameters()]
+    try:
+        trainer.train_step(bad)
+        raise AssertionError("--debug-nans: a NaN batch did not raise")
+    except FloatingPointError as e:
+        message = str(e)
+    if "train step 1" not in message or not all(
+            torch.equal(p, q) for p, q in zip(trainer.model.parameters(), before)):
+        raise AssertionError(f"--debug-nans: {message!r}, or the weights moved")
+    print(f"  --debug-nans: raised {message!r}", flush=True)
+    del trainer
+    from supervised_dispnet_tpu_torch.cli import train as train_cli
+
+    t = train_cli.main([str(tmp / "data"), "--network", "disp_res_50", "--loss", "berhu",
+                        "-b", str(B), "--epoch-size", "3", "--epochs", "1", "--with-gt",
+                        "--profile-steps", "2", "--checkpoints-dir", str(tmp / "ckpt"),
+                        "--name", "profile"])
+    trace = Path(t.cfg.save_path) / "profile" / "trace.json"
+    events = json.loads(trace.read_text())["traceEvents"]
+    kernels = sum(e.get("cat") == "kernel" for e in events)
+    print(f"  --profile-steps 2: {trace} ({trace.stat().st_size} bytes, {kernels} kernel "
+          f"events)", flush=True)
+    if kernels == 0:
+        raise AssertionError("--profile-steps: the trace holds no kernel of the card")
+    return {"debug_nans_message": message, "trace_bytes": trace.stat().st_size,
+            "trace_kernel_events": kernels}
+
+
+CAST_VARIANTS = ("fp32", "bf16, a cast a conv, BN in fp32", "bf16, a cast a conv",
+                 "bf16, one cast a forward")
+
+
+def _cast_variant(torch, variant: str):
+    """Install ``variant``'s casting on the port's classes; returns the
+    undo. "a cast a conv" is the committed design; "BN in fp32" also casts
+    each BN's input to float32 and its output back; "one cast a forward"
+    casts all trunk weights at the start of the model's forward in one
+    multi-tensor copy, and their gradients back in one, from hooks that
+    ``_cast_once_a_forward`` adds."""
+    import torch.nn.functional as F
+
+    from supervised_dispnet_tpu_torch.models import common
+
+    bn_forward = common.BatchNorm2d.forward
+    compute_params = common._ComputeParams.compute_params
+
+    def bn_in_fp32(self, x):
+        x = x.to(torch.float32)
+        if not self.training:
+            y = torch.nn.BatchNorm2d.forward(self, x)
+        else:
+            with torch.no_grad():
+                var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
+                self.running_mean.lerp_(mean, self.momentum)
+                self.running_var.lerp_(var, self.momentum)
+                self.num_batches_tracked += 1
+            y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+        return y if self.compute_dtype is None else y.to(self.compute_dtype)
+
+    def cached(self):
+        cast = getattr(self, "_cast", None)
+        if cast is not None and cast[2] == self.weight._version:
+            return cast[0], cast[1]
+        return compute_params(self)
+
+    if variant == CAST_VARIANTS[1]:
+        common.BatchNorm2d.forward = bn_in_fp32
+    if variant == CAST_VARIANTS[3]:
+        common._ComputeParams.compute_params = cached
+
+    def undo():
+        common.BatchNorm2d.forward = bn_forward
+        common._ComputeParams.compute_params = compute_params
+    return undo
+
+
+def _cast_once_a_forward(torch, model) -> None:
+    from supervised_dispnet_tpu_torch.models import common
+
+    class CastParams(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, *params):
+            out = [torch.empty_like(p, dtype=torch.bfloat16) for p in params]
+            torch._foreach_copy_(out, list(params))
+            return tuple(out)
+
+        @staticmethod
+        def backward(ctx, *grads):
+            out = [torch.empty_like(g, dtype=torch.float32) for g in grads]
+            torch._foreach_copy_(out, list(grads))
+            return tuple(out)
+
+    convs = [m for m in model.modules()
+             if isinstance(m, (common.Conv2d, common.ConvTranspose2d))]
+
+    def cast(module, args):
+        params = [t for m in convs for t in (m.weight, m.bias) if t is not None]
+        out = iter(CastParams.apply(*params))
+        for m in convs:
+            m._cast = (next(out), None if m.bias is None else next(out), m.weight._version)
+
+    def drop(module, args, output):
+        for m in convs:
+            m._cast = None
+
+    model.register_forward_pre_hook(cast)
+    model.register_forward_hook(drop)
+
+
+def cast_variants_phase(torch, tmp: Path, card: str) -> dict:
+    """What the explicit casts of ``--bf16`` cost DispResNet-50's BerHu step
+    at 128x416, B=4: ``CAST_VARIANTS`` in turns, twice (CUDA events over 20
+    steps after 3; busy ms and kernel launches a step from the profile)."""
+    from supervised_dispnet_tpu_torch.models import get_disp_net
+    from supervised_dispnet_tpu_torch.training.trainer import Trainer, TrainerConfig
+    from supervised_dispnet_tpu_torch.utils.profiling import steady_state_images_per_sec
+
+    B, H, W = MAIN_SHAPE
+    write_packed(tmp / "data", np.random.default_rng(25), H, W)
+    rows = []
+    for turn in range(2):
+        for variant in (CAST_VARIANTS if turn == 0 else CAST_VARIANTS[::-1]):
+            undo = _cast_variant(torch, variant)
+            try:
+                model = get_disp_net("disp_res_50", seed=3)
+                trainer = Trainer(TrainerConfig(data=str(tmp / "data"), batch_size=B,
+                                                bf16=variant != "fp32",
+                                                save_path=str(tmp / "run")), model)
+                if variant == CAST_VARIANTS[3]:
+                    _cast_once_a_forward(torch, model)
+                loader = iter(trainer.make_loaders()[0])
+                batch = trainer.prep_train_batch(next(loader))
+                loader.close()
+                ips = steady_state_images_per_sec(lambda: trainer.train_step(batch), B,
+                                                  trainer.device, iters=20, warmup=3)
+                prof = profile_steps(torch, lambda: trainer.train_step(batch), n=5, top=0)
+            finally:
+                undo()
+            launches = prof["launches_per_step"]
+            rows.append({"variant": variant, "turn": turn, "step_ms": B / ips * 1e3,
+                         "busy_ms": prof["busy_ms_per_step"], "launches": launches})
+            print(f"  casts: {variant:32s} turn {turn}: step {B / ips * 1e3:.3f} ms, busy "
+                  f"{prof['busy_ms_per_step']:.3f} ms, {launches:.0f} kernels a step, on "
+                  f"{card}", flush=True)
+            del trainer, model, batch
+            torch.cuda.empty_cache()
+    return {"rows": rows}
+
+
+def options_phase(torch, tmp: Path, card: str) -> dict:
+    """Slice 6, the trainer's options on the card: the run through the CLI
+    with them on and its resume, fp32 against bf16 steps, the card's bf16
+    step against the CPU's, remat's memory and time, the NaN check and the
+    step trace."""
+    t0 = time.perf_counter()
+    out = {"run": options_run_phase(torch, tmp / "run"),
+           "bf16_steps": bf16_steps_phase(torch, tmp / "bf16", card),
+           "bf16_cross_check": bf16_cross_check(torch),
+           "remat": remat_phase(torch, card),
+           "debug_profile": debug_profile_phase(torch, tmp / "debug"),
+           "casts": cast_variants_phase(torch, tmp / "casts", card)}
+    out["seconds"] = time.perf_counter() - t0
+    print(f"  options phase: {out['seconds']:.1f} s", flush=True)
+    return out
+
+
 def inverse_warp_phase(torch, device: str = "cuda") -> dict:
     """``ops.warp.inverse_warp`` as a user calls it, with its default
     ``diff_img=True``, at the main path's shape, and a backward into the
@@ -2326,7 +2867,8 @@ def profile_steps(torch, step, n: int = 5, top: int = 12, count: tuple[str, ...]
         print(f"    own kernel: {r['kernel']}: x{r['calls_per_step']:g} a step, "
               f"{r['us_per_call']:.2f} us a call on the device", flush=True)
     out = {"steps": n, "wall_ms_per_step": wall_us / n / 1e3,
-           "busy_ms_per_step": busy_us / n / 1e3, "top": rows, "own_kernels": own}
+           "busy_ms_per_step": busy_us / n / 1e3, "top": rows, "own_kernels": own,
+           "launches_per_step": sum(e.count for e in kernels) / n}
     if count:
         out["counts"] = {c: sum(e.count for e in kernels if c in e.key) / n for c in count}
     return out
@@ -2636,6 +3178,7 @@ def main() -> int:
             raise AssertionError(f"the pose and serving paths launched kernels: "
                                  f"{serve_launches}")
         nets = networks_phase(torch, Path(tmp), card, tree)
+        opts = options_phase(torch, Path(tmp) / "options", card)
     iw = inverse_warp_phase(torch)
     xc = {**cross_check(torch), **selfsup_cross_check(torch)}
 
@@ -2667,6 +3210,7 @@ def main() -> int:
     print(json.dumps({"eval": ev, "inference": inf, "eval_kernel_launches": eval_launches}))
     print(json.dumps({"pose": po, "serving": sv, "networks": nets,
                       "pose_serving_kernel_launches": serve_launches}))
+    print(json.dumps({"options": opts}))
     print(json.dumps({"kernels": list(kernels.values())}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -9,6 +9,10 @@ supervised, depth-as-classification and self-supervised paths
   python -m supervised_dispnet_tpu_torch.cli.train /data/kitti_packed \\
       --network dispnet --loss selfsup --sequence-length 3 -p 1.0 -m 0.2 -s 0.1 -b 4
 
+  python -m supervised_dispnet_tpu_torch.cli.train /data/kitti_packed \\
+      --network disp_res_50 --loss berhu -b 4 --bf16 --ema-decay 0.999 \\
+      --accum-steps 2 --pretrained-encoder resnet50.pth --imagenet-normalization
+
 Reads packed datasets (``data/packed.py``). Runs on the card unless
 ``--device cpu`` is given. A JAX flag whose feature is not ported yet raises
 ``NotImplementedError``; it is never ignored.
@@ -18,18 +22,17 @@ from __future__ import annotations
 
 import argparse
 import datetime
+import sys
 from pathlib import Path
 
 from supervised_dispnet_tpu_torch.cli import parse_args_or_raise
 
 # JAX CLI flags of features that later slices port (see ROADMAP.md)
 _LATER_FLAGS = frozenset((
-    "--ema-decay", "--imagenet-normalization", "--hue", "--half-res-photo",
-    "--stochastic-photo", "--bf16", "--remat", "--qat", "--debug-nans", "--loader",
-    "--steps-per-dispatch", "--accum-steps", "--spatial-shards",
-    "--profile-steps", "-f", "--training-output-freq",
-    "-j", "--workers", "--pretrained-encoder", "--resume",
+    "--qat", "--spatial-shards", "--loader", "-j", "--workers", "--steps-per-dispatch",
+    "--half-res-photo", "--stochastic-photo", "-f", "--training-output-freq",
 ))
+REMAT_CHOICES = ("full", "conv")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -91,6 +94,38 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--pretrained-exppose", default=None,
                    help="--loss selfsup: initialise the pose net from an exp_pose "
                         ".pth.tar; with -m > 0 it must hold the mask decoder")
+    p.add_argument("--pretrained-encoder", default=None,
+                   help="disp_res*: initialise the encoder from a torchvision "
+                        "ResNet-18/50 state dict (ImageNet weights, BN statistics "
+                        "included; fc.* dropped)")
+    p.add_argument("--resume", action="store_true",
+                   help="continue the newest run under <checkpoints-dir>/<name> "
+                        "exactly: models, optimizer, EMA, augmentation generator, "
+                        "step, epoch and best metric")
+    p.add_argument("--bf16", action="store_true",
+                   help="bfloat16 trunk compute; parameters and the heads stay "
+                        "float32 (fcrn has no bf16 trunk and stays float32)")
+    p.add_argument("--ema-decay", type=float, default=0.0,
+                   help="> 0 keeps an EMA shadow of the parameters, ticked once an "
+                        "update; validation uses it (e.g. 0.999)")
+    p.add_argument("--accum-steps", type=int, default=1,
+                   help="> 1: average the gradients of this many micro-batches into "
+                        "one optimizer update (effective batch k * batch-size)")
+    p.add_argument("--remat", choices=REMAT_CHOICES, default=None,
+                   help="activation checkpointing of the disp net's stages (and the "
+                        "self-supervised photometric terms): 'full' (also bare "
+                        "--remat) recomputes them in the backward, 'conv' saves the "
+                        "convolutions' outputs and recomputes the rest")
+    p.add_argument("--hue", type=float, default=0.0,
+                   help="hue-jitter amplitude (fraction of the colour wheel)")
+    p.add_argument("--imagenet-normalization", action="store_true",
+                   help="normalise with ImageNet's mean and std, not 0.5 / 0.5")
+    p.add_argument("--debug-nans", action="store_true",
+                   help="raise FloatingPointError at the first non-finite loss or "
+                        "gradient (reads a flag from the card every step)")
+    p.add_argument("--profile-steps", type=int, default=0,
+                   help="> 0: a torch.profiler trace of this many steady-state train "
+                        "steps (from the second) into <run>/profile")
     p.add_argument("--max-depth", type=float, default=80.0)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--img-height", type=int, default=128,
@@ -112,7 +147,40 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
+    """The flags; a bare ``--remat`` means ``--remat full`` and never takes
+    the next argument (the data root) as its value."""
+    argv = list(sys.argv[1:] if argv is None else argv)
+    argv = ["--remat=full" if tok == "--remat" and (i + 1 == len(argv)
+                                                    or argv[i + 1] not in REMAT_CHOICES)
+            else tok for i, tok in enumerate(argv)]
     return parse_args_or_raise(build_parser(), argv, _LATER_FLAGS)
+
+
+def load_pretrained_encoder(model, path: str | Path, network: str) -> None:
+    """A torchvision ResNet state dict into ``model``'s encoder
+    (``utils/convert.py::convert_resnet_encoder``), BN statistics included;
+    the depth is the network's."""
+    from supervised_dispnet_tpu_torch.utils.checkpoint import load_torch_state_dict
+    from supervised_dispnet_tpu_torch.utils.convert import convert_resnet_encoder
+
+    sd = convert_resnet_encoder(load_torch_state_dict(path),
+                                depth=50 if network.endswith("50") else 18)
+    missing, unexpected = model.encoder.load_state_dict(sd, strict=False)
+    if unexpected or any(not k.endswith("num_batches_tracked") for k in missing):
+        raise ValueError(f"{path}: the encoder's state dict does not fit: missing "
+                         f"{missing[:4]}, unexpected {unexpected[:4]}")
+
+
+def run_dir(checkpoints_dir: str | Path, name: str, resume: bool) -> Path:
+    """``<checkpoints_dir>/<name>/<timestamp>``; with ``resume``, the newest
+    run there, when there is one."""
+    root = Path(checkpoints_dir) / name
+    if resume:
+        runs = sorted(d for d in root.glob("*") if d.is_dir()) if root.is_dir() else []
+        if runs:
+            return runs[-1]
+        print(f"=> --resume: no previous run under {root}, starting fresh")
+    return root / datetime.datetime.now().strftime("%m-%d-%H.%M")
 
 
 def load_pretrained_exppose(pose_model, path: str | Path) -> None:
@@ -138,6 +206,9 @@ def load_pretrained_exppose(pose_model, path: str | Path) -> None:
 def main(argv: list[str] | None = None):
     """Train; returns the ``Trainer``."""
     args = parse_args(argv)
+    if args.pretrained_encoder and not args.network.startswith("disp_res"):
+        raise ValueError("--pretrained-encoder applies to disp_res* networks, "
+                         f"not {args.network}")
 
     import torch
 
@@ -145,8 +216,7 @@ def main(argv: list[str] | None = None):
     from supervised_dispnet_tpu_torch.training.trainer import Trainer, TrainerConfig
     from supervised_dispnet_tpu_torch.utils.checkpoint import load_torch_state_dict
 
-    timestamp = datetime.datetime.now().strftime("%m-%d-%H.%M")
-    save_path = Path(args.checkpoints_dir) / args.name / timestamp
+    save_path = run_dir(args.checkpoints_dir, args.name, args.resume)
     cfg = TrainerConfig(
         data=args.data, save_path=str(save_path), loss=args.loss, epochs=args.epochs, epoch_size=args.epoch_size,
         batch_size=args.batch_size, lr=args.lr, beta1=args.momentum,
@@ -157,12 +227,16 @@ def main(argv: list[str] | None = None):
         sequence_length=args.sequence_length, rotation_mode=args.rotation_mode,
         padding_mode=args.padding_mode, photo_loss_weight=args.photo_loss_weight,
         mask_loss_weight=args.mask_loss_weight,
-        smooth_loss_weight=args.smooth_loss_weight)
+        smooth_loss_weight=args.smooth_loss_weight,
+        imagenet_normalization=args.imagenet_normalization, hue=args.hue,
+        bf16=args.bf16, remat=args.remat or False, ema_decay=args.ema_decay,
+        accum_steps=args.accum_steps, debug_nans=args.debug_nans,
+        profile_steps=args.profile_steps, resume=args.resume)
     head = "classification" if args.loss == "classification" else "disp"
     model = get_disp_net(args.network, head=head, num_bins=args.num_bins,
                          multiscale_classification=args.multiscale_classification,
-                         fused_upsample=args.fused_upsample, seed=args.seed,
-                         device=args.device)
+                         fused_upsample=args.fused_upsample, remat=args.remat,
+                         seed=args.seed, device=args.device)
     pose_model = None
     if args.loss == "selfsup":
         # a stream of its own, so the disp net's weights do not depend on it
@@ -171,6 +245,8 @@ def main(argv: list[str] | None = None):
                                 generator=torch.Generator().manual_seed(args.seed + 1))
     if args.pretrained_disp:
         model.load_state_dict(load_torch_state_dict(args.pretrained_disp), strict=True)
+    if args.pretrained_encoder:
+        load_pretrained_encoder(model, args.pretrained_encoder, args.network)
     if args.pretrained_exppose:
         if pose_model is None:
             raise ValueError("--pretrained-exppose needs --loss selfsup")

@@ -6,17 +6,23 @@ the original size, intrinsics rescaled) collapse into one affine,
 axis-aligned coordinate map, so the bilinear resample is separable: per
 sample two tent-weight matrix products (A_y @ img @ A_x^T). Sparse GT depth
 rides the same map with nearest taps (bilinear would bleed zeros into the
-LiDAR points). Then brightness, contrast and saturation jitter, shared
-across a snippet's frames, and normalisation.
+LiDAR points). Then brightness, contrast and saturation jitter and, with
+``hue``, a hue rotation in YIQ space, shared across a snippet's frames, and
+normalisation (the reference's 0.5 / 0.5, or ImageNet's mean and std).
 
 Randomness comes from a ``torch.Generator``; ``draws=`` takes the random
-numbers from the caller instead (tests pass the JAX package's draws).
+numbers from the caller instead (tests pass the JAX package's draws). The
+hue angle is drawn after every other number, so turning hue on leaves the
+other draws as they were (the JAX package folds its hue key out of the
+others for the same reason).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
+import numpy as np
 import torch
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
@@ -34,7 +40,7 @@ class AugmentConfig:
     brightness: float = 0.2
     contrast: float = 0.2
     saturation: float = 0.2
-    hue: float = 0.0  # hue jitter is not ported yet: > 0 raises
+    hue: float = 0.0  # max hue rotation, a fraction of the colour wheel
     mean: tuple[float, float, float] = HALF_MEAN
     std: tuple[float, float, float] = HALF_STD
 
@@ -45,7 +51,8 @@ def draw_augment(B: int, H: int, W: int, config: AugmentConfig,
     """Per-sample random numbers of one augmentation, each of shape (B,):
     scale_x, scale_y in [1, max_scale); crop offsets ox in [0, (scale_x-1)W)
     and oy likewise; flip (bool); and, with color jitter, the brightness,
-    contrast and saturation factors in [1 - a, 1 + a)."""
+    contrast and saturation factors in [1 - a, 1 + a) and, with ``hue``, the
+    hue angle in [-2 pi hue, 2 pi hue), drawn last."""
     def u(lo: float = 0.0, hi: float = 1.0) -> torch.Tensor:
         return lo + (hi - lo) * torch.rand(B, generator=generator, device=device)
 
@@ -61,7 +68,36 @@ def draw_augment(B: int, H: int, W: int, config: AugmentConfig,
         draws["brightness"] = u(1.0 - config.brightness, 1.0 + config.brightness)
         draws["contrast"] = u(1.0 - config.contrast, 1.0 + config.contrast)
         draws["saturation"] = u(1.0 - config.saturation, 1.0 + config.saturation)
+        if config.hue > 0:
+            draws["hue"] = u(-config.hue * 2 * np.pi, config.hue * 2 * np.pi)
     return draws
+
+
+_YIQ = np.array([[0.299, 0.587, 0.114],
+                 [0.596, -0.274, -0.322],
+                 [0.211, -0.523, 0.312]], np.float32)
+
+
+@functools.lru_cache(maxsize=8)
+def _yiq_matrices(device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """RGB -> YIQ and its float32 inverse, made once a device (a copy from
+    the host each step would wait for the card), outside inference mode."""
+    with torch.inference_mode(False):
+        to_rgb = np.linalg.inv(_YIQ).astype(np.float32)
+        return (torch.from_numpy(_YIQ).to(device).clone(),
+                torch.from_numpy(to_rgb).to(device).clone())
+
+
+def rotate_hue(imgs: torch.Tensor, theta: torch.Tensor) -> torch.Tensor:
+    """Rotate (B, S, H, W, 3) RGB in [0, 1] by ``theta`` (B,) radians about
+    YIQ's luma axis, clipped to [0, 1] (the JAX package's hue jitter)."""
+    to_yiq, to_rgb = _yiq_matrices(imgs.device)
+    yiq = torch.einsum("ij,bshwj->bshwi", to_yiq, imgs)
+    cos_t = torch.cos(theta).view(-1, 1, 1, 1, 1)
+    sin_t = torch.sin(theta).view(-1, 1, 1, 1, 1)
+    i, q = yiq[..., 1:2], yiq[..., 2:3]
+    yiq = torch.cat([yiq[..., 0:1], i * cos_t - q * sin_t, i * sin_t + q * cos_t], dim=-1)
+    return torch.einsum("ij,bshwj->bshwi", to_rgb, yiq).clamp(0.0, 1.0)
 
 
 def augment_batch(
@@ -78,8 +114,6 @@ def augment_batch(
     optional (B, H, W) sparse GT (zeros = missing). Returns (imgs,
     intrinsics[, depth]) with imgs normalised; same shapes.
     """
-    if config.hue > 0:
-        raise NotImplementedError("hue jitter is not ported yet; see ROADMAP.md")
     B, S, H, W, _ = imgs.shape
     dev, f32 = imgs.device, torch.float32
     if draws is None:
@@ -119,6 +153,8 @@ def augment_batch(
         out = ((out - mean_px) * c + mean_px).clamp(0.0, 1.0)
         gray = 0.299 * out[..., 0:1] + 0.587 * out[..., 1:2] + 0.114 * out[..., 2:3]
         out = ((out - gray) * s + gray).clamp(0.0, 1.0)
+        if config.hue > 0:
+            out = rotate_hue(out, draws["hue"])
     out = normalize_images(out, config.mean, config.std)
 
     if depth is None:

@@ -7,7 +7,8 @@ The image pyramid is 2x2 average pooling, intrinsics are rescaled per scale,
 and each term is a mean over all pixels with out-of-view differences zeroed,
 as in the reference. The photometric loss samples every (scale, ref) warp
 with one ``ops.warp.sample_many`` call: on the card, one grouped kernel
-launch each way a step.
+launch each way a step (with ``remat``, one more forward launch when the
+backward recomputes the terms).
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ from collections.abc import Sequence
 
 import torch
 
+from supervised_dispnet_tpu_torch.models.common import remat_call
 from supervised_dispnet_tpu_torch.ops import warp
 from supervised_dispnet_tpu_torch.ops.resize import downsample2x_avg
 
@@ -53,15 +55,26 @@ def photometric_reconstruction_loss(
     (``ops.warp.sample_many``), then the terms are summed scale-major,
     ref-minor. Returns (loss, the finest scale's warped refs).
 
-    ``half_res``, ``remat``, ``batch_refs`` and ``stochastic_stride > 1`` are
-    the JAX package's other arms; they are not ported.
+    ``remat`` checkpoints the terms (pyramid, projections, warps and
+    differences): the backward recomputes them instead of holding them, and
+    the warped refs come back empty, as the JAX package's remat arm does.
+    ``half_res``, ``batch_refs`` and ``stochastic_stride > 1`` are the JAX
+    package's other arms; they are not ported.
     """
-    for name, value in (("half_res", half_res), ("remat", remat),
-                        ("batch_refs", batch_refs),
+    for name, value in (("half_res", half_res), ("batch_refs", batch_refs),
                         ("stochastic_stride", stochastic_stride > 1)):
         if value:
             raise NotImplementedError(
                 f"photometric loss {name} is not ported yet; see ROADMAP.md")
+    args = (tgt_img, ref_imgs, intrinsics, depths, explainability_masks, pose,
+            rotation_mode, padding_mode)
+    if remat:
+        return remat_call("full", lambda: _photometric_terms(*args)[0]), []
+    return _photometric_terms(*args)
+
+
+def _photometric_terms(tgt_img, ref_imgs, intrinsics, depths, explainability_masks, pose,
+                       rotation_mode, padding_mode) -> tuple[torch.Tensor, list[torch.Tensor]]:
     tgts, imgs, xs, ys, valids = [], [], [], [], []
     tgt_s, refs_s = tgt_img, list(ref_imgs)
     for s, depth in enumerate(depths):

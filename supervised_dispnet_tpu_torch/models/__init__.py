@@ -5,6 +5,7 @@ from __future__ import annotations
 
 import torch
 
+from supervised_dispnet_tpu_torch.models.common import set_compute_dtype, set_remat
 from supervised_dispnet_tpu_torch.models.disp_vgg_bn import DispVggBN
 from supervised_dispnet_tpu_torch.models.dispnet import DispNetS
 from supervised_dispnet_tpu_torch.models.dispresnet import DispResNet
@@ -23,19 +24,20 @@ _NETWORKS = ("dispnet", *_RESNETS, "disp_vgg_bn", "fcrn")
 
 def get_disp_net(name: str, head: str = "disp", num_bins: int = 64,
                  multiscale_classification: bool = False, fused_upsample: bool = False,
-                 remat: bool | str = False, seed: int = 0,
+                 remat: bool | str = False, bf16: bool = False, seed: int = 0,
                  device: str | torch.device = "cuda") -> torch.nn.Module:
     """Build a disparity (or, ``fcrn``, metric depth) network by its
     ``--network`` name, with weights drawn from ``seed``, on ``device`` (the
     card unless asked otherwise). ``head='classification'`` (disp_res*
     only) gives the bin-logit head of ``num_bins`` bins, at all four scales
-    with ``multiscale_classification``. ``remat`` (the JAX factory's
-    rematerialisation) is not ported and raises."""
+    with ``multiscale_classification``. ``remat`` (True or "full", "conv")
+    checkpoints the stages the JAX factory's does. ``bf16`` computes the
+    trunk in bfloat16 with float32 parameters and heads
+    (``models/common.py::set_compute_dtype``); FCRN has no such trunk and
+    stays float32, as in the JAX package."""
     key = name.lower()
     if key not in _NETWORKS:
         raise ValueError(f"unknown network {name!r}; choices: {sorted(_NETWORKS)}")
-    if remat:
-        raise NotImplementedError(f"remat={remat!r} is not ported yet; see ROADMAP.md")
     if head != "disp" and key not in _RESNETS:
         raise ValueError(
             f"classification head is only supported on disp_res*, got {name!r}")
@@ -58,6 +60,9 @@ def get_disp_net(name: str, head: str = "disp", num_bins: int = 64,
         model = DispResNet(_RESNETS[key], head=head, num_bins=num_bins,
                            multiscale_classification=multiscale_classification,
                            fused_upsample=fused_upsample, generator=generator)
+    set_remat(model, remat)
+    if bf16:
+        set_compute_dtype(model, torch.bfloat16)
     return model.to(dev)
 
 

@@ -1,17 +1,39 @@
 """Shared model building blocks: the conv+ELU blocks, the disparity head,
-flax-matched BatchNorm and the initialisers. The port of
-``supervised_dispnet_tpu/models/common.py`` (NCHW inside the modules).
+flax-matched BatchNorm, the initialisers, the compute dtype and activation
+checkpointing. The port of ``supervised_dispnet_tpu/models/common.py``
+(NCHW inside the modules).
 
 The blocks are ``nn.Sequential``s so that their layers carry the reference
-state dict's names (``conv{i}.0`` / ``.2``, ``upconv{i}.0``, ``iconv{i}.0``)."""
+state dict's names (``conv{i}.0`` / ``.2``, ``upconv{i}.0``, ``iconv{i}.0``).
+
+**Compute dtype.** flax's ``dtype`` field (``--bf16``) is cast explicitly,
+where flax casts, not with ``torch.autocast`` (whose op lists differ between
+the CPU and CUDA): a trunk ``Conv2d`` / ``ConvTranspose2d`` with
+``compute_dtype`` set computes in it from its input, weight and bias cast to
+it, and adds the bias to its rounded output; ``BatchNorm2d`` takes its
+statistics and normalises in float32 and returns the compute dtype. The
+heads are plain ``nn.Conv2d``s that run in float32. Parameters stay float32
+throughout, so their gradients do too.
+
+**Remat.** ``remat_call`` runs a block under ``torch.utils.checkpoint``:
+``"full"`` saves nothing of it, ``"conv"`` saves the convolutions' (and
+matrix products') outputs and recomputes the rest, as the JAX package's
+``remat_wrap`` policies do. A block's train-mode BatchNorms update their
+running statistics once, in the forward, not again when the backward
+recomputes it."""
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
+import functools
 import math
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (
+    CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts)
 
 from supervised_dispnet_tpu_torch.ops.fused_upconv import upconv2x_fused
 
@@ -38,13 +60,56 @@ def init_convs_xavier_(module: nn.Module, generator: torch.Generator | None) -> 
             xavier_uniform_(m, generator)
 
 
+def _add_bias(y: torch.Tensor, bias: torch.Tensor | None) -> torch.Tensor:
+    """flax's conv epilogue in a compute dtype: the bias added to the conv's
+    rounded output (cuDNN adds it so too; the CPU's fused bias would round
+    once)."""
+    return y if bias is None else y + bias[:, None, None]
+
+
+class _ComputeParams:
+    """A trunk conv's ``compute_dtype`` (None: float32) and its weight and
+    bias in it."""
+
+    compute_dtype: torch.dtype | None = None
+
+    def compute_params(self) -> tuple[torch.Tensor, torch.Tensor | None]:
+        dt = self.compute_dtype
+        if dt is None:
+            return self.weight, self.bias
+        return self.weight.to(dt), None if self.bias is None else self.bias.to(dt)
+
+
+class Conv2d(_ComputeParams, nn.Conv2d):
+    """A trunk conv: ``nn.Conv2d`` that, with ``compute_dtype`` set, computes
+    in it (flax ``nn.Conv(dtype=)``). Its state dict is ``nn.Conv2d``'s."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.compute_dtype is None:
+            return super().forward(x)
+        weight, bias = self.compute_params()
+        return _add_bias(self._conv_forward(x.to(self.compute_dtype), weight, None), bias)
+
+
+class ConvTranspose2d(_ComputeParams, nn.ConvTranspose2d):
+    """A trunk transposed conv with ``compute_dtype``, as ``Conv2d``."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.compute_dtype is None:
+            return super().forward(x)
+        weight, bias = self.compute_params()
+        y = F.conv_transpose2d(x.to(self.compute_dtype), weight, None, self.stride,
+                               self.padding, self.output_padding, self.groups, self.dilation)
+        return _add_bias(y, bias)
+
+
 class ConvELU(nn.Sequential):
     """k x k conv (padding (k-1)/2, optional stride) + ELU."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel: int = 3,
                  stride: int = 1):
-        super().__init__(nn.Conv2d(in_channels, out_channels, kernel, stride=stride,
-                                   padding=(kernel - 1) // 2), nn.ELU())
+        super().__init__(Conv2d(in_channels, out_channels, kernel, stride=stride,
+                                padding=(kernel - 1) // 2), nn.ELU())
 
 
 class DownsampleConv(nn.Sequential):
@@ -54,8 +119,8 @@ class DownsampleConv(nn.Sequential):
     def __init__(self, in_channels: int, out_channels: int, kernel: int = 3):
         pad = (kernel - 1) // 2
         super().__init__(
-            nn.Conv2d(in_channels, out_channels, kernel, stride=2, padding=pad), nn.ELU(),
-            nn.Conv2d(out_channels, out_channels, kernel, padding=pad), nn.ELU())
+            Conv2d(in_channels, out_channels, kernel, stride=2, padding=pad), nn.ELU(),
+            Conv2d(out_channels, out_channels, kernel, padding=pad), nn.ELU())
 
 
 class UpConvELU(nn.Sequential):
@@ -65,8 +130,8 @@ class UpConvELU(nn.Sequential):
     kernel computes. The output is exactly twice the input."""
 
     def __init__(self, in_channels: int, out_channels: int):
-        super().__init__(nn.ConvTranspose2d(in_channels, out_channels, 3, stride=2,
-                                            padding=1, output_padding=1), nn.ELU())
+        super().__init__(ConvTranspose2d(in_channels, out_channels, 3, stride=2,
+                                         padding=1, output_padding=1), nn.ELU())
 
 
 def crop_like(x: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
@@ -86,25 +151,118 @@ def kaiming_normal_(conv: nn.Conv2d, generator: torch.Generator | None) -> None:
         nn.init.zeros_(conv.bias)
 
 
+# True while torch.utils.checkpoint recomputes a block in the backward (in
+# the thread that recomputes it)
+_RECOMPUTING: contextvars.ContextVar[bool] = contextvars.ContextVar(
+    "_RECOMPUTING", default=False)
+
+
 class BatchNorm2d(nn.BatchNorm2d):
     """BatchNorm with flax ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)``
     semantics. ``torch.nn.BatchNorm2d`` updates ``running_var`` with the
     unbiased batch variance; flax (and so the JAX package) uses the biased
     one, which this module does. Normalisation in train mode uses the biased
-    batch variance in both. State-dict layout is torch's."""
+    batch variance in both. State-dict layout is torch's.
+
+    With ``compute_dtype`` set (flax's ``dtype``), statistics and
+    normalisation are float32 and the output is ``compute_dtype``. A
+    recomputation under ``remat_call`` leaves the running statistics as the
+    forward left them."""
+
+    compute_dtype: torch.dtype | None = None
 
     def __init__(self, num_features: int):
         super().__init__(num_features, eps=1e-5, momentum=0.1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        # a bf16 input normalises in float32 inside F.batch_norm (float32
+        # weight and bias) and comes back bf16: flax's rounding points
         if not self.training:
-            return super().forward(x)
-        with torch.no_grad():
-            var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
-            self.running_mean.lerp_(mean, self.momentum)
-            self.running_var.lerp_(var, self.momentum)
-            self.num_batches_tracked += 1
-        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+            y = super().forward(x)
+        else:
+            if not _RECOMPUTING.get():
+                with torch.no_grad():
+                    var, mean = torch.var_mean(x.to(torch.float32), dim=(0, 2, 3),
+                                               unbiased=False)
+                    self.running_mean.lerp_(mean, self.momentum)
+                    self.running_var.lerp_(var, self.momentum)
+                    self.num_batches_tracked += 1
+            y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+        return y if self.compute_dtype is None else y.to(self.compute_dtype)
+
+
+def set_compute_dtype(model: nn.Module, dtype: torch.dtype | None) -> bool:
+    """Make ``model``'s trunk compute in ``dtype`` (None: float32), as the
+    JAX trainer's ``model.clone(dtype=...)`` does, on the networks that have
+    that field (``has_compute_dtype``): every ``Conv2d``, ``ConvTranspose2d``
+    and ``BatchNorm2d`` of it; the heads stay float32. Returns False, and
+    changes nothing, for a network without the field (FCRN, as in the JAX
+    package)."""
+    if not getattr(model, "has_compute_dtype", False):
+        return False
+    for m in model.modules():
+        if isinstance(m, (Conv2d, ConvTranspose2d, BatchNorm2d)):
+            m.compute_dtype = dtype
+    return True
+
+
+# the ops whose outputs remat="conv" saves (jax.checkpoint's
+# conv_general_dilated and dot_general)
+_SAVED_OPS = frozenset((torch.ops.aten.convolution.default, torch.ops.aten.mm.default,
+                        torch.ops.aten.bmm.default, torch.ops.aten.addmm.default))
+
+
+def _save_convs(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_OPS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+@contextlib.contextmanager
+def _recomputing(inner: contextlib.AbstractContextManager):
+    token = _RECOMPUTING.set(True)
+    try:
+        with inner:
+            yield
+    finally:
+        _RECOMPUTING.reset(token)
+
+
+def _contexts(policy: str):
+    fwd, rec = ((contextlib.nullcontext(), contextlib.nullcontext()) if policy == "full"
+                else create_selective_checkpoint_contexts(_save_convs))
+    return fwd, _recomputing(rec)
+
+
+def remat_policy(remat: bool | str | None) -> str | None:
+    """The JAX package's ``remat`` values: falsy -> None, True or "full" ->
+    "full", "conv" -> "conv"."""
+    if not remat:
+        return None
+    if remat is True or remat == "full":
+        return "full"
+    if remat == "conv":
+        return "conv"
+    raise ValueError(f"unknown remat {remat!r}; choices: 'full', 'conv'")
+
+
+def set_remat(model: nn.Module, remat: bool | str | None) -> None:
+    """Checkpoint ``model``'s stages under ``remat`` (``remat_policy``'s
+    values; falsy turns it off): every submodule with a ``remat`` attribute
+    (the ResNet and VGG encoders' blocks or stages, DispNetS's stages,
+    FCRN's up-projections) takes the policy."""
+    policy = remat_policy(remat)
+    for m in model.modules():
+        if hasattr(m, "remat"):
+            m.remat = policy
+
+
+def remat_call(policy: str | None, fn, *args):
+    """``fn(*args)``, checkpointed under ``policy`` ("full" or "conv") when
+    gradients are being recorded; called as it is otherwise."""
+    if policy is None or not torch.is_grad_enabled():
+        return fn(*args)
+    return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False,
+                      context_fn=functools.partial(_contexts, policy))
 
 
 class DispHead(nn.Sequential):
@@ -122,20 +280,22 @@ class DispHead(nn.Sequential):
         return self.alpha * torch.sigmoid(self[0](x.to(torch.float32))) + self.beta
 
 
-def fused_upsample_conv(conv: nn.Conv2d, h: torch.Tensor, skip: torch.Tensor | None,
+def fused_upsample_conv(conv: Conv2d, h: torch.Tensor, skip: torch.Tensor | None,
                         target_hw: tuple[int, int], stage: int) -> torch.Tensor:
     """``conv`` (3x3, padding 1) of (2x bilinear upsample of ``h`` to
     ``target_hw``, concat ``skip``) before its activation, without the
     upsample (``ops/fused_upconv.py::upconv2x_fused``): the weight's input
     channels are split as the concat lays them out, ``h``'s first. The
-    decoder stage ``stage`` must upsample exactly 2x."""
+    decoder stage ``stage`` must upsample exactly 2x. In the conv's compute
+    dtype, as the JAX stage casts (taps composed in that dtype)."""
     if tuple(target_hw) != (2 * h.shape[2], 2 * h.shape[3]):
         raise ValueError(
             "fused_upsample needs an exact 2x stage geometry (input height "
             f"and width divisible by 32); decoder stage {stage} upsamples "
             f"{tuple(h.shape[2:])} to {tuple(target_hw)}")
     ch = h.shape[1]
-    y = upconv2x_fused(h, conv.weight[:, :ch])
+    weight, bias = conv.compute_params()
+    y = upconv2x_fused(h.to(weight.dtype), weight[:, :ch])
     if skip is None:
-        return y + conv.bias[:, None, None]
-    return y + F.conv2d(skip, conv.weight[:, ch:], conv.bias, padding=1)
+        return y + bias[:, None, None]
+    return y + F.conv2d(skip.to(weight.dtype), weight[:, ch:], bias, padding=1)

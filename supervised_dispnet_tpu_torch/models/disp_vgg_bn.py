@@ -13,6 +13,11 @@ does, from the same weights. BN is flax-matched (``models/common.py``).
 Module names follow the reference state dict: ``encoder.features.{n}``
 (torchvision numbering), ``upconv{k}.0``, ``iconv{k}.0``,
 ``predict_disp{s}.0``.
+
+The encoder and decoder take the trunk's compute dtype (``--bf16``), the
+heads compute in float32. Remat (``models/common.py::set_remat``)
+checkpoints each encoder stage (its conv-BN-ReLU layers, up to the pool), as
+the JAX model does.
 """
 
 from __future__ import annotations
@@ -22,7 +27,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from supervised_dispnet_tpu_torch.models.common import (
-    BatchNorm2d, DispHead, fused_upsample_conv, init_convs_xavier_)
+    BatchNorm2d, Conv2d, DispHead, fused_upsample_conv, init_convs_xavier_, remat_call)
 from supervised_dispnet_tpu_torch.ops.resize import interpolate_bilinear
 
 # VGG16: conv widths per stage, each stage followed by a 2x2 max-pool
@@ -33,29 +38,42 @@ DEC_PLANES = (16, 32, 64, 128, 256)
 class VggEncoder(nn.Module):
     """``features``: torchvision's vgg16_bn layer list. ``forward(x) ->
     (skips, bottleneck)``: the five pre-pool maps (strides 1, 2, 4, 8, 16)
-    and the last pool's output (stride 32)."""
+    and the last pool's output (stride 32). ``remat`` ("full", "conv" or
+    None) checkpoints each stage's layers before its pool."""
+
+    remat: str | None = None
 
     def __init__(self):
         super().__init__()
         layers: list[nn.Module] = []
+        self.pools: list[int] = []  # each stage's pool, its index in features
         in_ch = 3
         for widths in VGG16_STAGES:
             for w in widths:
-                layers += [nn.Conv2d(in_ch, w, 3, padding=1), BatchNorm2d(w), nn.ReLU()]
+                layers += [Conv2d(in_ch, w, 3, padding=1), BatchNorm2d(w), nn.ReLU()]
                 in_ch = w
+            self.pools.append(len(layers))
             layers.append(nn.MaxPool2d(2, 2))
         self.features = nn.Sequential(*layers)
 
+    def _layers(self, start: int, stop: int, x: torch.Tensor) -> torch.Tensor:
+        for i in range(start, stop):
+            x = self.features[i](x)
+        return x
+
     def forward(self, x: torch.Tensor) -> tuple[list[torch.Tensor], torch.Tensor]:
-        skips = []
-        for layer in self.features:
-            if isinstance(layer, nn.MaxPool2d):
-                skips.append(x)
-            x = layer(x)
+        skips, start = [], 0
+        for pool in self.pools:
+            x = remat_call(self.remat, self._layers, start, pool, x)
+            skips.append(x)
+            x = self.features[pool](x)
+            start = pool + 1
         return skips, x
 
 
 class DispVggBN(nn.Module):
+    has_compute_dtype = True
+
     def __init__(self, fused_upsample: bool = False,
                  generator: torch.Generator | None = None):
         super().__init__()
@@ -65,9 +83,9 @@ class DispVggBN(nn.Module):
         for k in range(4, -1, -1):
             in_ch = enc_ch[4] if k == 4 else DEC_PLANES[k + 1]
             self.add_module(f"upconv{k}", nn.Sequential(
-                nn.Conv2d(in_ch, DEC_PLANES[k], 3, padding=1)))
+                Conv2d(in_ch, DEC_PLANES[k], 3, padding=1)))
             self.add_module(f"iconv{k}", nn.Sequential(
-                nn.Conv2d(DEC_PLANES[k] + enc_ch[k], DEC_PLANES[k], 3, padding=1)))
+                Conv2d(DEC_PLANES[k] + enc_ch[k], DEC_PLANES[k], 3, padding=1)))
         for s in range(1, 5):
             self.add_module(f"predict_disp{s}", DispHead(DEC_PLANES[s - 1]))
         # flax defaults: xavier-uniform convs with zero bias, BN scale 1 / bias 0

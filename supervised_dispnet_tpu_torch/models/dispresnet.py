@@ -15,6 +15,11 @@ copy, which the CE kernels read in place. Module names follow the reference
 state dict (``encoder.*``, ``upconv{i}.0``, ``iconv{i}.0``,
 ``predict_disp{s}.0``, ``predict_class.0`` and ``predict_class{s}.0`` for the
 coarser scales s = 2..4).
+
+The encoder and decoder take the trunk's compute dtype (``--bf16``); the
+disparity and bin-logit heads compute in float32, as the JAX heads do.
+Remat (``models/common.py::set_remat``) checkpoints the encoder's blocks,
+as the JAX model does.
 """
 
 from __future__ import annotations
@@ -24,7 +29,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from supervised_dispnet_tpu_torch.models.common import (
-    DispHead, fused_upsample_conv, xavier_uniform_)
+    Conv2d, DispHead, fused_upsample_conv, xavier_uniform_)
 from supervised_dispnet_tpu_torch.models.resnet import ResNetEncoder
 from supervised_dispnet_tpu_torch.ops.resize import interpolate_bilinear
 
@@ -38,6 +43,8 @@ def _class_head_name(s: int) -> str:
 
 
 class DispResNet(nn.Module):
+    has_compute_dtype = True
+
     def __init__(self, encoder_depth: int = 18, head: str = "disp",
                  num_bins: int = 64, multiscale_classification: bool = False,
                  fused_upsample: bool = False,
@@ -51,9 +58,9 @@ class DispResNet(nn.Module):
             in_ch = enc_ch[4] if i == 4 else DEC_PLANES[i + 1]
             cat_ch = DEC_PLANES[i] + (enc_ch[i - 1] if i > 0 else 0)
             self.add_module(f"upconv{i}", nn.Sequential(
-                nn.Conv2d(in_ch, DEC_PLANES[i], 3, padding=1)))
+                Conv2d(in_ch, DEC_PLANES[i], 3, padding=1)))
             self.add_module(f"iconv{i}", nn.Sequential(
-                nn.Conv2d(cat_ch, DEC_PLANES[i], 3, padding=1)))
+                Conv2d(cat_ch, DEC_PLANES[i], 3, padding=1)))
         self.head = head
         self.fused_upsample = fused_upsample
         self.multiscale_classification = multiscale_classification

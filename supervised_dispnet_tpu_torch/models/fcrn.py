@@ -19,6 +19,11 @@ reads by default: the ResNet-50 at the root (``conv1``, ``bn1``,
 ``layer1..4``), then ``conv2`` / ``bn2``, ``up{1..4}.{conv,bn}{1,2,3}`` and
 ``conv3``; the 5x5 weights are the reference's, convolved over the
 zero-stuffed map.
+
+FCRN has no compute dtype: it stays float32 under ``--bf16``, as the JAX
+model, which has no ``dtype`` field, does. Remat
+(``models/common.py::set_remat``) checkpoints the encoder's blocks and each
+up-projection, as the JAX model does.
 """
 
 from __future__ import annotations
@@ -27,7 +32,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from supervised_dispnet_tpu_torch.models.common import BatchNorm2d, xavier_uniform_
+from supervised_dispnet_tpu_torch.models.common import (
+    BatchNorm2d, remat_call, xavier_uniform_)
 from supervised_dispnet_tpu_torch.models.resnet import ResNetEncoder
 from supervised_dispnet_tpu_torch.ops.resize import interpolate_bilinear
 
@@ -88,6 +94,6 @@ class FCRN(ResNetEncoder):
         h = super().forward(x.permute(0, 3, 1, 2).contiguous())[-1]
         h = self.bn2(self.conv2(h))
         for n in range(1, 5):
-            h = getattr(self, f"up{n}")(h)
+            h = remat_call(self.remat, getattr(self, f"up{n}"), h)
         h = F.relu(self.conv3(h))
         return interpolate_bilinear(h, H, W).permute(0, 2, 3, 1)

@@ -5,7 +5,8 @@ A stride-2 conv+ELU encoder over the channel-concatenated (target, refs)
 snippet; a 1x1 pose head, averaged over space and scaled by 0.01, giving
 6-DoF per reference frame; and, with ``output_exp``, a transposed-conv
 decoder giving four sigmoid explainability masks. Inputs and masks are NHWC
-at the interface, NCHW inside. The pose and mask heads run in float32.
+at the interface, NCHW inside. The encoder and decoder take the trunk's
+compute dtype (``--bf16``); the pose and mask heads run in float32.
 Module names follow the reference state dict (``conv{i}.0``, ``pose_pred``,
 ``upconv{i}.0``, ``predict_mask{i}``).
 """
@@ -31,6 +32,8 @@ class PoseExpNet(nn.Module):
     refs a list of ``nb_ref_imgs`` (B, H, W, 3); pose (B, nb_ref_imgs, 6);
     exp_masks four (B, H/2^s, W/2^s, nb_ref_imgs) masks, finest first, or
     None when ``output_exp`` is False."""
+
+    has_compute_dtype = True
 
     def __init__(self, nb_ref_imgs: int = 2, output_exp: bool = True,
                  generator: torch.Generator | None = None):
@@ -80,7 +83,10 @@ class PoseExpNet(nn.Module):
 
 class PoseNet(PoseExpNet):
     """Pose only: ``forward(tgt, refs) -> pose`` (B, nb_ref_imgs, 6); the
-    explainability decoder is not built."""
+    explainability decoder is not built. No compute dtype, as the JAX
+    ``PoseNet`` has none."""
+
+    has_compute_dtype = False
 
     def __init__(self, nb_ref_imgs: int = 2, generator: torch.Generator | None = None):
         super().__init__(nb_ref_imgs, output_exp=False, generator=generator)

@@ -3,7 +3,10 @@
 
 torchvision layout (stem, ``layer1..4`` of BasicBlock / Bottleneck,
 ``downsample.0/1``), so the state dict is the reference checkpoint's. BN is
-flax-matched (``models/common.py::BatchNorm2d``). Works in NCHW.
+flax-matched (``models/common.py::BatchNorm2d``). Works in NCHW. The convs
+and BNs take the trunk's compute dtype (``models/common.py``); with
+``remat`` each block is checkpointed (the JAX encoder's ``remat_wrap`` of
+its blocks).
 """
 
 from __future__ import annotations
@@ -12,13 +15,14 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from supervised_dispnet_tpu_torch.models.common import BatchNorm2d, kaiming_normal_
+from supervised_dispnet_tpu_torch.models.common import (
+    BatchNorm2d, Conv2d, kaiming_normal_, remat_call)
 
 
 def _downsample(in_ch: int, out_ch: int, stride: int) -> nn.Sequential | None:
     if stride == 1 and in_ch == out_ch:
         return None
-    return nn.Sequential(nn.Conv2d(in_ch, out_ch, 1, stride, bias=False),
+    return nn.Sequential(Conv2d(in_ch, out_ch, 1, stride, bias=False),
                          BatchNorm2d(out_ch))
 
 
@@ -27,9 +31,9 @@ class BasicBlock(nn.Module):
 
     def __init__(self, in_ch: int, features: int, stride: int = 1):
         super().__init__()
-        self.conv1 = nn.Conv2d(in_ch, features, 3, stride, 1, bias=False)
+        self.conv1 = Conv2d(in_ch, features, 3, stride, 1, bias=False)
         self.bn1 = BatchNorm2d(features)
-        self.conv2 = nn.Conv2d(features, features, 3, 1, 1, bias=False)
+        self.conv2 = Conv2d(features, features, 3, 1, 1, bias=False)
         self.bn2 = BatchNorm2d(features)
         self.downsample = _downsample(in_ch, features, stride)
 
@@ -46,11 +50,11 @@ class Bottleneck(nn.Module):
     def __init__(self, in_ch: int, features: int, stride: int = 1):
         super().__init__()
         out_ch = features * self.expansion
-        self.conv1 = nn.Conv2d(in_ch, features, 1, bias=False)
+        self.conv1 = Conv2d(in_ch, features, 1, bias=False)
         self.bn1 = BatchNorm2d(features)
-        self.conv2 = nn.Conv2d(features, features, 3, stride, 1, bias=False)
+        self.conv2 = Conv2d(features, features, 3, stride, 1, bias=False)
         self.bn2 = BatchNorm2d(features)
-        self.conv3 = nn.Conv2d(features, out_ch, 1, bias=False)
+        self.conv3 = Conv2d(features, out_ch, 1, bias=False)
         self.bn3 = BatchNorm2d(out_ch)
         self.downsample = _downsample(in_ch, out_ch, stride)
 
@@ -70,7 +74,10 @@ RESNET_SPECS = {
 
 
 class ResNetEncoder(nn.Module):
-    """Returns 5 feature maps at strides 2, 4, 8, 16, 32 (finest first)."""
+    """Returns 5 feature maps at strides 2, 4, 8, 16, 32 (finest first).
+    ``remat`` ("full", "conv" or None) checkpoints each block."""
+
+    remat: str | None = None
 
     def __init__(self, depth: int = 18):
         super().__init__()
@@ -78,7 +85,7 @@ class ResNetEncoder(nn.Module):
             raise NotImplementedError(f"ResNet-{depth} is not ported; depths "
                                       f"{sorted(RESNET_SPECS)}")
         block_cls, stage_sizes, self.feature_channels = RESNET_SPECS[depth]
-        self.conv1 = nn.Conv2d(3, 64, 7, 2, 3, bias=False)
+        self.conv1 = Conv2d(3, 64, 7, 2, 3, bias=False)
         self.bn1 = BatchNorm2d(64)
         in_ch = 64
         for stage, (n_blocks, width) in enumerate(zip(stage_sizes, (64, 128, 256, 512))):
@@ -104,6 +111,7 @@ class ResNetEncoder(nn.Module):
         feats = [h]  # 1/2
         h = F.max_pool2d(h, 3, 2, 1)
         for stage in (self.layer1, self.layer2, self.layer3, self.layer4):
-            h = stage(h)
+            for block in stage:
+                h = remat_call(self.remat, block, h)
             feats.append(h)  # 1/4, 1/8, 1/16, 1/32
         return feats

@@ -6,12 +6,16 @@
 The JAX step is one pure jitted function of (state, batch); here the model
 and optimizer hold the state and are updated in place, and PyTorch runs
 eagerly. A step's metrics stay on the device, so nothing waits for the card
-inside the step.
+inside the step (unless ``debug_nans`` asks it to). What the JAX
+``TrainState.apply_gradients`` adds to the optimizer, gradient accumulation
+and the EMA shadow, is ``ApplyGradients``; each train step carries its own
+as ``step.update``.
 """
 
 from __future__ import annotations
 
-from collections.abc import Callable
+import contextlib
+from collections.abc import Callable, Iterable
 
 import torch
 
@@ -71,6 +75,121 @@ def _not_ported(**options) -> None:
                 f"{name}={value!r} is not ported yet; see ROADMAP.md")
 
 
+class ApplyGradients:
+    """The JAX ``TrainState.apply_gradients`` for models updated in place:
+    called after each backward (a micro-step), it
+
+    - with ``debug_nans``, raises ``FloatingPointError`` naming the step
+      when the loss or a gradient is not finite, before anything changes;
+    - with ``accum_steps`` k > 1, folds the gradients into their running
+      mean, as ``optax.MultiSteps`` does (acc += (g - acc) / (n + 1)), and
+      applies it as one optimizer update every k-th micro-step; a partial
+      accumulation carries over to the next micro-steps;
+    - after each optimizer update, with ``ema_decay`` d > 0, blends the
+      parameters into their shadow, ema = d * ema + (1 - d) * params (not
+      the BatchNorm buffers).
+
+    ``micro_step`` counts micro-steps (the JAX ``state.step``), ``updates``
+    the optimizer updates. ``state_dict`` / ``load_state_dict`` carry all of
+    it, partial accumulation included, for an exact resume."""
+
+    def __init__(self, named_params: Iterable[tuple[str, torch.nn.Parameter]],
+                 optimizer: torch.optim.Optimizer, ema_decay: float = 0.0,
+                 accum_steps: int = 1, debug_nans: bool = False):
+        if accum_steps < 1:
+            raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
+        if not 0.0 <= ema_decay < 1.0:
+            raise ValueError(f"ema_decay must be in [0, 1), got {ema_decay}")
+        named = list(named_params)
+        self.names = [n for n, _ in named]
+        self.params = [p for _, p in named]
+        self.optimizer = optimizer
+        self.ema_decay = ema_decay
+        self.accum_steps = accum_steps
+        self.debug_nans = debug_nans
+        self.micro_step = 0
+        self._acc: list[torch.Tensor] | None = None
+        self.ema = ([p.detach().clone() for p in self.params] if ema_decay > 0
+                    else None)
+
+    @property
+    def updates(self) -> int:
+        return self.micro_step // self.accum_steps
+
+    def __call__(self, loss: torch.Tensor) -> None:
+        if self.debug_nans:
+            self._check_finite(loss)
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in self.params]
+        mini = self.micro_step % self.accum_steps
+        self.micro_step += 1
+        if self.accum_steps > 1:
+            if mini == 0:
+                self._acc = [g.detach() for g in grads]
+            else:
+                diff = torch._foreach_sub(grads, self._acc)
+                torch._foreach_div_(diff, float(mini + 1))
+                torch._foreach_add_(self._acc, diff)
+            if mini + 1 < self.accum_steps:
+                return
+            for p, g in zip(self.params, self._acc):
+                p.grad = g
+            self._acc = None
+        self.optimizer.step()
+        if self.ema is not None:
+            with torch.no_grad():
+                torch._foreach_mul_(self.ema, self.ema_decay)
+                torch._foreach_add_(self.ema, self.params, alpha=1.0 - self.ema_decay)
+
+    def _check_finite(self, loss: torch.Tensor) -> None:
+        """One read of the card: the loss's and each gradient's finiteness."""
+        grads = [(n, p.grad) for n, p in zip(self.names, self.params) if p.grad is not None]
+        ok = torch.stack([torch.isfinite(loss.detach()).all()]
+                         + [torch.isfinite(g).all() for _, g in grads]).cpu()
+        if not bool(ok.all()):
+            what = (["loss"] if not ok[0] else []) + [
+                n for (n, _), good in zip(grads, ok[1:].tolist()) if not good]
+            raise FloatingPointError(
+                f"non-finite {', '.join(what[:4])}"
+                f"{' ...' if len(what) > 4 else ''} at train step {self.micro_step} "
+                f"(update {self.updates}); no update was applied")
+
+    @contextlib.contextmanager
+    def ema_params(self):
+        """The parameters hold the EMA shadow inside the block (validation
+        and inference, as the JAX trainer's ``eval_params``); the live
+        values outside it. A no-op without EMA."""
+        if self.ema is None:
+            yield
+            return
+        live = [p.data for p in self.params]
+        for p, e in zip(self.params, self.ema):
+            p.data = e
+        try:
+            yield
+        finally:
+            for p, d in zip(self.params, live):
+                p.data = d
+
+    def state_dict(self) -> dict:
+        return {"micro_step": self.micro_step,
+                "ema": None if self.ema is None else dict(zip(self.names, self.ema)),
+                "acc": None if self._acc is None else dict(zip(self.names, self._acc))}
+
+    def load_state_dict(self, state: dict) -> None:
+        """Restore ``state_dict``'s values (tensors copied in place). A state
+        without an EMA shadow (a run without EMA) re-seeds the shadow from
+        the current parameters, as the JAX restore does."""
+        self.micro_step = int(state["micro_step"])
+        if self.ema is not None:
+            saved = state.get("ema")
+            with torch.no_grad():
+                for n, e, p in zip(self.names, self.ema, self.params):
+                    e.copy_(saved[n] if saved is not None else p)
+        acc = state.get("acc")
+        self._acc = (None if acc is None else
+                     [acc[n].to(p.device, p.dtype) for n, p in zip(self.names, self.params)])
+
+
 def make_supervised_train_step(
     model: torch.nn.Module,
     optimizer: torch.optim.Optimizer,
@@ -80,12 +199,15 @@ def make_supervised_train_step(
     max_depth: float = 80.0,
     ema_decay: float = 0.0,
     accum_steps: int = 1,
+    debug_nans: bool = False,
     fake_quant: bool = False,
     mesh=None,
 ):
     """Build the supervised step: ``step(batch, generator=None, draws=None)
-    -> {"loss": 0-d tensor on the device}``; it updates ``model`` and
-    ``optimizer`` in place and leaves the gradients in ``.grad``.
+    -> {"loss": 0-d tensor on the device}``, one micro-step; it updates
+    ``model`` and ``optimizer`` in place and leaves the gradients in
+    ``.grad``. ``ema_decay``, ``accum_steps`` and ``debug_nans`` are
+    ``ApplyGradients``'s, which the step carries as ``step.update``.
 
     batch: {'tgt': (B, H, W, 3) uint8 or [0, 1] float, 'intrinsics':
     (B, 3, 3), 'depth': (B, H, W) sparse GT, fp16 or fp32}, on the model's
@@ -99,8 +221,7 @@ def make_supervised_train_step(
     BerHu and the CE on the card run the CUDA kernels, on the CPU their
     plain versions.
     """
-    _not_ported(ema_decay=ema_decay, accum_steps=accum_steps > 1,
-                fake_quant=fake_quant, mesh=mesh)
+    _not_ported(fake_quant=fake_quant, mesh=mesh)
     classification = loss_name == "classification"
     if not classification and loss_name not in SUPERVISED_LOSSES:
         raise ValueError(f"unknown supervised loss {loss_name!r}; choices: "
@@ -108,6 +229,8 @@ def make_supervised_train_step(
     bins = bins or DepthBins()
     loss_fn = SUPERVISED_LOSSES.get(loss_name)
     ce_fn = CLASSIFICATION_CE
+    update = ApplyGradients(model.named_parameters(), optimizer, ema_decay, accum_steps,
+                            debug_nans)
 
     def compute_loss(out, depth_gt: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         if not classification:
@@ -132,9 +255,10 @@ def make_supervised_train_step(
         optimizer.zero_grad(set_to_none=True)
         loss = compute_loss(model(imgs[:, 0]), depth_gt, mask)
         loss.backward()
-        optimizer.step()
+        update(loss)
         return {"loss": loss.detach()}
 
+    step.update = update
     return step
 
 
@@ -150,22 +274,37 @@ def make_selfsup_train_step(
     padding_mode: str = "zeros",
     aug: AugmentConfig = AugmentConfig(),
     num_scales: int = 4,
+    ema_decay: float = 0.0,
+    accum_steps: int = 1,
+    debug_nans: bool = False,
+    remat_photo: bool = False,
+    half_res_photo: bool = False,
+    stochastic_photo: int = 1,
+    fake_quant: bool = False,
 ):
     """Build the self-supervised step (photometric + explainability +
     smoothness, BASELINE config 5): ``step(batch, generator=None,
     draws=None) -> {"loss", "photo_loss", "exp_loss", "smooth_loss"}``, 0-d
-    tensors on the device. ``optimizer`` holds both nets' parameters, as the
-    JAX step applies one optax transform to ``{"disp", "pose"}``; both nets
-    are updated in place. ``mask_weight == 0`` drops the explainability term
-    (and the pose net's masks).
+    tensors on the device, one micro-step. ``optimizer`` holds both nets'
+    parameters, as the JAX step applies one optax transform to ``{"disp",
+    "pose"}``; both nets are updated in place, through ``step.update``
+    (``ApplyGradients``: ``ema_decay``, ``accum_steps``, ``debug_nans``;
+    parameter names ``disp.*`` and ``pose.*``). ``mask_weight == 0`` drops
+    the explainability term (and the pose net's masks). ``remat_photo``
+    checkpoints the photometric terms (``--remat``).
 
     batch: {'tgt': (B, H, W, 3), 'ref_imgs': (B, R, H, W, 3), uint8 or
     [0, 1] float; 'intrinsics': (B, 3, 3)}, on the models' device. The warps
     run the CUDA kernels on the card and the plain sampler on the CPU. The
-    JAX step's other options (half-res, stochastic and remat photometric
-    terms, EMA, accumulation, QAT, a mesh) are not ported; see ROADMAP.md.
+    JAX step's half-res and stochastic photometric terms and QAT are not
+    ported and raise; see ROADMAP.md.
     """
+    _not_ported(half_res_photo=half_res_photo, stochastic_photo=stochastic_photo > 1,
+                fake_quant=fake_quant)
     with_exp = mask_weight > 0
+    named = [(f"{tag}.{n}", p) for tag, net in (("disp", disp_model), ("pose", pose_model))
+             for n, p in net.named_parameters()]
+    update = ApplyGradients(named, optimizer, ema_decay, accum_steps, debug_nans)
 
     def step(batch: dict, generator: torch.Generator | None = None,
              draws: dict | None = None) -> dict[str, torch.Tensor]:
@@ -183,16 +322,17 @@ def make_selfsup_train_step(
         exp_masks = exp_masks[:num_scales] if with_exp else None
         photo, _ = photometric_reconstruction_loss(
             tgt, refs, K, disps_to_depths(disps), exp_masks, pose,
-            rotation_mode=rotation_mode, padding_mode=padding_mode)
+            rotation_mode=rotation_mode, padding_mode=padding_mode, remat=remat_photo)
         exp_l = (explainability_loss(exp_masks) if with_exp
                  else torch.zeros((), dtype=torch.float32, device=tgt.device))
         smooth = smooth_loss(disps)
         loss = photo_weight * photo + mask_weight * exp_l + smooth_weight * smooth
         loss.backward()
-        optimizer.step()
+        update(loss)
         return {"loss": loss.detach(), "photo_loss": photo.detach(),
                 "exp_loss": exp_l.detach(), "smooth_loss": smooth.detach()}
 
+    step.update = update
     return step
 
 

@@ -18,7 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from supervised_dispnet_tpu_torch.models.resnet import RESNET_SPECS
+from supervised_dispnet_tpu_torch.models.resnet import RESNET_SPECS, ResNetEncoder
 
 
 def j2t_conv(kernel) -> torch.Tensor:
@@ -69,6 +69,29 @@ def _put_resnet(sd: dict, prefix: str, ep: dict, es: dict, depth: int) -> None:
             if "downsample_conv" in jp:
                 sd[f"{block}.downsample.0.weight"] = j2t_conv(jp["downsample_conv"]["kernel"])
                 _put_bn(sd, f"{block}.downsample.1", jp["downsample_bn"], js["downsample_bn"])
+
+
+def convert_resnet_encoder(sd: dict[str, torch.Tensor], depth: int = 18
+                           ) -> dict[str, torch.Tensor]:
+    """A torchvision ResNet-18/50 state dict (ImageNet initialisation) ->
+    the state dict of the port's ``ResNetEncoder`` of that depth
+    (``DispResNet.encoder``), as the JAX package's
+    ``utils/checkpoint.py::convert_resnet_encoder`` converts it: every conv
+    and BN, running statistics included; ``fc.*`` is dropped. The encoder
+    has torchvision's names, so the keys carry over as they are
+    (``num_batches_tracked`` too, where the file has it). A missing key
+    raises ``KeyError`` naming it."""
+    if depth not in RESNET_SPECS:
+        raise ValueError(f"no ResNet-{depth} encoder; depths {sorted(RESNET_SPECS)}")
+    sd = {k.removeprefix("module."): v for k, v in sd.items()}
+    with torch.device("meta"):
+        keys = list(ResNetEncoder(depth).state_dict())
+    missing = [k for k in keys if k not in sd and not k.endswith("num_batches_tracked")]
+    if missing:
+        raise KeyError(f"not a torchvision ResNet-{depth} state dict: no "
+                       f"{', '.join(missing[:4])}{' ...' if len(missing) > 4 else ''}")
+    return {k: sd[k].clone() if k.endswith("num_batches_tracked")
+            else sd[k].to(torch.float32).clone() for k in keys if k in sd}
 
 
 def dispresnet_from_jax(params: dict, batch_stats: dict, depth: int = 18,

@@ -70,11 +70,13 @@ class TermLogger:
 class CsvLogger:
     """Per-epoch summary + per-iteration full CSV logs."""
 
-    def __init__(self, save_path: str | Path):
+    def __init__(self, save_path: str | Path, append: bool = False):
         self.save_path = Path(save_path)
         self.save_path.mkdir(parents=True, exist_ok=True)
         self.summary = self.save_path / "progress_log_summary.csv"
         self.full = self.save_path / "progress_log_full.csv"
+        if append and self.summary.exists():
+            return  # resuming: keep the previous run's rows
         with open(self.summary, "w", newline="") as f:
             csv.writer(f, delimiter="\t").writerow(["train_loss", "validation_loss"])
         with open(self.full, "w", newline="") as f:

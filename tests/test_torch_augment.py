@@ -97,11 +97,22 @@ def test_draws_from_a_generator_are_in_range_and_reproducible():
     assert 0 < int(a["flip"].sum()) < 64
 
 
-def test_hue_jitter_is_not_ported():
+def test_hue_jitter_rotates_hue_and_keeps_luma():
+    """Hue rotation turns the chroma (YIQ's I, Q) and keeps the luma Y, up
+    to the [0, 1] clip; the JAX parity is ``test_torch_train_options.py``'s."""
     imgs, K, _ = _inputs(0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        augment_batch(torch.from_numpy(imgs), torch.from_numpy(K),
-                      config=AugmentConfig(hue=0.1))
+    imgs = 0.25 + 0.5 * imgs  # away from the clip
+    draws = draw_augment(B, H, W, AugmentConfig(hue=0.1), torch.Generator().manual_seed(1))
+    draws.update(brightness=torch.ones(B), contrast=torch.ones(B), saturation=torch.ones(B),
+                 scale_x=torch.ones(B), scale_y=torch.ones(B), ox=torch.zeros(B),
+                 oy=torch.zeros(B), flip=torch.zeros(B, dtype=torch.bool))
+    out, _ = augment_batch(torch.from_numpy(imgs), torch.from_numpy(K),
+                           config=AugmentConfig(hue=0.1, mean=(0, 0, 0), std=(1, 1, 1)),
+                           draws=draws)
+    luma = torch.tensor([0.299, 0.587, 0.114])
+    x = torch.from_numpy(imgs)
+    np.testing.assert_allclose((out @ luma).numpy(), (x @ luma).numpy(), atol=1e-5)
+    assert (out - x).abs().max() > 1e-2
 
 
 def test_normalize_images_matches_jax():

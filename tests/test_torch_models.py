@@ -139,11 +139,11 @@ def test_resize_bilinear_refuses_downsampling():
         resize_bilinear(torch.zeros(1, 8, 8, 1), 4, 8)
 
 
-@pytest.mark.parametrize("kw", [{"name": "fcrn", "remat": True}])
+@pytest.mark.parametrize("kw", [{"name": "fcrn", "remat": "half"}])
 def test_unported_variants_raise(kw):
-    """A variant of the JAX factory still to port (rematerialisation) raises,
-    naming the roadmap."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """A remat policy the JAX factory does not have raises, naming the
+    choices ("full" and "conv" are ported)."""
+    with pytest.raises(ValueError, match="'full', 'conv'"):
         get_disp_net(**kw, device="cpu")
 
 

@@ -159,11 +159,14 @@ def test_card_math_is_full_fp32_unless_tf32_is_asked_for(tf32_flags):
 
 
 @pytest.mark.parametrize("cli,argv,err", [
-    ("train", ["--bf16"], "--bf16"), ("train", ["--qat"], "--qat"),
-    pytest.param("train", ["--network", "disp_vgg_bn", "--pretrained-encoder", "enc.pth"],
-                 "--pretrained-encoder", id="train-argv2-disp_vgg_bn"),
+    ("train", ["--spatial-shards", "2"], "--spatial-shards"), ("train", ["--qat"], "--qat"),
+    ("train", ["--loss", "selfsup", "--stochastic-photo", "2"], "--stochastic-photo"),
     ("train", ["--loss", "selfsup", "--half-res-photo"], "--half-res-photo"),
     ("test_disp", ["--int8"], "--int8"),
+    ("train", ["--loader", "device"], "--loader"),
+    ("train", ["--steps-per-dispatch", "2"], "--steps-per-dispatch"),
+    ("train", ["--training-output-freq", "5"], "--training-output-freq"),
+    ("train", ["-j", "2"], "-j"),
 ])
 def test_unported_cli_choices_raise(tmp_path, cli, argv, err):
     if cli == "train":
@@ -175,6 +178,14 @@ def test_unported_cli_choices_raise(tmp_path, cli, argv, err):
                 str(tmp_path), "--dataset-list", str(tmp_path / "list.txt"), *argv]
     with pytest.raises(NotImplementedError, match=err):
         main([*argv, "--device", "cpu"])
+
+
+def test_pretrained_encoder_refuses_a_network_without_a_resnet_encoder(tmp_path):
+    """``--pretrained-encoder`` is for disp_res*: on VGG-BN it raises
+    ``ValueError``, as the JAX CLI does, before any file is read."""
+    with pytest.raises(ValueError, match="disp_res"):
+        train_cli.main([str(tmp_path), "--network", "disp_vgg_bn", "--pretrained-encoder",
+                        str(tmp_path / "enc.pth"), "--device", "cpu"])
 
 
 def _packed_split(root: Path, H: int, W: int, n_train: int = 6, n_val: int = 4,

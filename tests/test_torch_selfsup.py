@@ -116,9 +116,11 @@ def test_scale_intrinsics_matches_jax():
                js._scale_intrinsics(jnp.asarray(K), f), rtol=1e-7)
 
 
-@pytest.mark.parametrize("kw", [{"half_res": True}, {"remat": True}, {"batch_refs": True},
-                                {"stochastic_stride": 2}])
+@pytest.mark.parametrize("kw", [{"half_res": True}, {"remat": True, "batch_refs": True},
+                                {"batch_refs": True}, {"stochastic_stride": 2}])
 def test_unported_photometric_arms_raise(kw):
+    """The arms still to port raise, also beside the ported remat arm
+    (``test_torch_train_options.py`` holds that one)."""
     tgt, refs, K, depths, masks, pose = (torch.from_numpy(a) if isinstance(a, np.ndarray)
                                          else [torch.from_numpy(x) for x in a]
                                          for a in _inputs())
