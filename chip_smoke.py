@@ -112,6 +112,20 @@ Phases; any failure exits non-zero:
        ``--profile-steps 2``; what the casts of ``--bf16`` cost
        DispResNet-50's step (a cast a conv, BN in fp32 as well, or one
        multi-tensor cast a forward, beside fp32, in turns);
+     - the photometric loss's arms: DispNetS + PoseExpNet at 128x416, B=4,
+       through ``cli.train.main`` by default, with ``--half-res-photo`` and
+       with ``--stochastic-photo 2``, and with ``batch_refs`` through the
+       step builder, 5 steps each (1 grouped forward and 1 grouped
+       coordinate-only warp launch a step, of 8 problems; 4 of batch 8 for
+       ``batch_refs``): the launches counted and profiled, each arm's
+       problems through the grouped kernels against the plain sampler, one
+       step card against CPU, step and busy ms; then ``-f 1`` with a
+       recording writer (the four training-output images; the warped one a
+       single-problem forward launch, held against the CPU port's);
+     - the loaders: ``--loader device`` against ``--loader threads`` (the
+       same batches bit for bit, the same losses), ``--steps-per-dispatch
+       4`` against 4 single steps (parameters, the logged mean, one
+       readback), DispResNet-50 BerHu with ``--loader device``;
      - ``ops.warp.inverse_warp`` with its default ``diff_img=True`` and a
        backward into the image, depth and pose (the image+coordinate
        backward's path), against the plain sampler on the card;
@@ -124,10 +138,14 @@ Phases; any failure exits non-zero:
      self-supervised) on the card with its kernels against the card with
      the plain versions, and against the CPU with the plain versions; VGG-BN
      and FCRN BerHu steps against the CPU;
-  5. a JSON line of the slice and cross-check numbers, a JSON line of the
+  5. ``scripts/torch_convergence_check.py`` for 60 steps of each task
+     (supervised disp_res_18, and DispNetS + PoseExpNet on synthetic
+     ego-motion scenes): initial and final metrics;
+  6. a JSON line of the slice and cross-check numbers, a JSON line of the
      eval and inference numbers, a JSON line of the pose, serving and
      network numbers, a JSON line of the training options' numbers, a JSON
-     line of kernel numbers, the card line, and as the last line
+     line of the photometric arms', loaders' and convergence numbers, a
+     JSON line of kernel numbers, the card line, and as the last line
      ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX: the machine with the card has none.
@@ -2761,6 +2779,458 @@ def options_phase(torch, tmp: Path, card: str) -> dict:
     return out
 
 
+# -- slice 7: the photometric loss's arms, the training-output images, the
+# loaders and a short convergence check ------------------------------------
+
+# arm: (the CLI's flags, or None where the JAX CLI has none and the step
+# builder takes it; the step builder's options; problems a grouped launch)
+PHOTO_ARMS = {
+    "default": ([], {}, 8),
+    "half_res": (["--half-res-photo"], {"half_res_photo": True}, 8),
+    "stochastic_2": (["--stochastic-photo", "2"], {"stochastic_photo": 2}, 8),
+    "batch_refs": (None, {"batch_refs": True}, 4),
+}
+ARM_PHASES = ((0, 1), (1, 0), (1, 1), (0, 0))  # the stochastic arm's, card vs CPU
+WARP_COUNTERS = {"warp_fwd": "warp_fwd_launches", "warp_bwd": "warp_bwd_launches",
+                 "warp_bwd_coords": "warp_bwd_coords_launches",
+                 "warp_fwd_problems": "warp_fwd_problems",
+                 "warp_bwd_coords_problems": "warp_bwd_coords_problems"}
+
+
+def _warp_counts(kw, zero: bool = False) -> dict:
+    """The warp kernels' launch and problem counters; ``zero`` sets them to
+    0 after reading them."""
+    counts = {k: getattr(kw, a) for k, a in WARP_COUNTERS.items()}
+    if zero:
+        for a in WARP_COUNTERS.values():
+            setattr(kw, a, 0)
+    return counts
+
+
+def _selfsup_argv(data: Path, ckpt: Path, name: str, steps: int, *extra: str) -> list:
+    """``cli.train`` arguments of BASELINE config 5 at the main path's batch."""
+    return [str(data), "--network", "dispnet", "--loss", "selfsup", "--sequence-length", "3",
+            "-p", "1.0", "-m", "0.2", "-s", "0.1", "-b", str(MAIN_SHAPE[0]),
+            "--epoch-size", str(steps), "--epochs", "1", "--checkpoints-dir", str(ckpt),
+            "--name", name, *extra]
+
+
+class RecordingWriter:
+    """A tensorboard writer that keeps the images it is handed."""
+
+    def __init__(self):
+        self.images = {}
+
+    def add_image(self, tag, img, step):
+        self.images[tag] = np.asarray(img, np.float32)
+
+    def add_scalar(self, *args, **kwargs):
+        pass
+
+    def close(self):
+        pass
+
+
+def _first_batch(trainer):
+    """The first batch of the trainer's train loader, on the card."""
+    loader = iter(trainer.make_loaders()[0])
+    batch = trainer.prep_train_batch(next(loader))
+    loader.close()  # stops the loader's prefetch thread
+    return batch
+
+
+def _arm_problems(torch, step, seed: int) -> list:
+    """The sampling problems that one call of ``step()`` hands
+    ``ops.warp.sample_many``, each with a seeded upstream gradient: (img, x,
+    y, g), as ``_group_agrees`` takes them."""
+    from supervised_dispnet_tpu_torch.ops import warp as wp
+
+    seen, real = [], wp.sample_many
+
+    def spy(imgs, xs, ys, padding_mode="zeros"):
+        seen.append([(i.detach().to(torch.float32).contiguous(), x.detach().contiguous(),
+                      y.detach().contiguous()) for i, x, y in zip(imgs, xs, ys)])
+        return real(imgs, xs, ys, padding_mode)
+
+    wp.sample_many = spy
+    try:
+        step()
+    finally:
+        wp.sample_many = real
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return [(i, x, y, torch.randn(*x.shape, i.shape[-1], device="cuda", generator=gen))
+            for i, x, y in seen[0]]
+
+
+def arm_cross_check(torch, arm: str) -> dict:
+    """One self-supervised step of a photometric arm from identical weights
+    on one batch, augmentation off, TF32 off: the card (kernels) against
+    the CPU (plain sampler), at the default step's tolerance
+    (``selfsup_cross_check``: loss and terms rtol 1e-4, each gradient tensor
+    within 1e-3 relative L2); the stochastic arm with fixed phases."""
+    opts = PHOTO_ARMS[arm][1]
+    phases = ARM_PHASES if "stochastic_photo" in opts else None
+    flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        batch, base = _selfsup_check_inputs(torch)
+        l_a, g_a = _one_selfsup_step(torch, *(copy.deepcopy(m).cuda() for m in base), batch,
+                                     "cuda", photo_phases=phases, **opts)
+        l_b, g_b = _one_selfsup_step(torch, *(copy.deepcopy(m) for m in base), batch, "cpu",
+                                     plain=True, photo_phases=phases, **opts)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+    rels = {n: _rel_l2(g_a[n], g_b[n]) for n in g_b}
+    worst = max(rels, key=rels.get)
+    loss_rel = max(abs(l_a[k] - l_b[k]) / max(abs(l_b[k]), 1e-30) for k in l_b)
+    print(f"  cross-check {arm} arm card vs cpu: loss {l_a['loss']:.7g} / {l_b['loss']:.7g} "
+          f"(photo {l_a['photo_loss']:.7g} / {l_b['photo_loss']:.7g}, worst term rel "
+          f"{loss_rel:.3g}); {len(rels)} gradients rel-L2 max {rels[worst]:.3g} ({worst})",
+          flush=True)
+    if loss_rel > 1e-4 or rels[worst] > 1e-3:
+        raise AssertionError(f"cross-check {arm} arm: loss rel {loss_rel:.3g} (limit 1e-4), "
+                             f"gradient {worst} rel-L2 {rels[worst]:.3g} (limit 1e-3)")
+    return {"loss": [l_a["loss"], l_b["loss"]], "loss_rel": loss_rel,
+            "rel_l2_max": rels[worst], "rel_l2_worst": worst}
+
+
+def photometric_arms_phase(torch, tmp: Path, card: str) -> dict:
+    """Slice 7's arms of the self-supervised step on the card, DispNetS +
+    PoseExpNet at 128x416, B=4, fp32: the default, ``--half-res-photo`` and
+    ``--stochastic-photo 2`` through ``cli.train.main`` (5 steps and a
+    validation without GT each), ``batch_refs`` through the step builder
+    (5 steps). For each: the counted launches and problems (1 grouped
+    forward and 1 grouped coordinate-only backward launch a step, of 8
+    problems, 4 for ``batch_refs``; validation the default arm's 8), the
+    profile's grouped launches a step and their device us, the arm's own
+    problem list through the grouped kernels against the plain sampler
+    (``_group_agrees``), one step card against CPU, and the step's ms (CUDA
+    events over 20 steps) and busy ms. Then ``-f 1`` with a recording
+    writer: the four images, one single-problem forward launch for the
+    warped image, which is held against the CPU port's."""
+    from supervised_dispnet_tpu_torch.cli import train as train_cli
+    from supervised_dispnet_tpu_torch.ops.cuda import warp as kw
+    from supervised_dispnet_tpu_torch.training import trainer as trainer_mod
+    from supervised_dispnet_tpu_torch.training.train_step import make_selfsup_train_step
+    from supervised_dispnet_tpu_torch.utils.profiling import steady_state_images_per_sec
+
+    B, H, W = MAIN_SHAPE
+    t0 = time.perf_counter()
+    write_packed(tmp / "data", np.random.default_rng(31), H, W, with_depth=False)
+    out, nets, batch = {}, None, None
+    for arm, (flags, opts, problems) in PHOTO_ARMS.items():
+        _warp_counts(kw, zero=True)
+        if flags is not None:
+            trainer = train_cli.main(_selfsup_argv(tmp / "data", tmp / "ckpt", arm, 5, *flags))
+            torch.cuda.synchronize()
+            launches = _warp_counts(kw)
+            steps, val = trainer.step, len(trainer.make_loaders()[1])
+            losses, _ = _read_run(trainer, steps)
+            nets = nets or (trainer.model, trainer.pose_model)
+            batch = _first_batch(trainer)
+
+            def step(trainer=trainer):
+                return trainer.train_step(batch)
+        else:
+            # no JAX CLI flag: the step builder, on the default run's nets
+            disp, pose = (copy.deepcopy(m) for m in nets)
+            built = make_selfsup_train_step(
+                disp, pose, torch.optim.Adam([*disp.parameters(), *pose.parameters()],
+                                             lr=2e-4), **opts)
+            gen = torch.Generator(device="cuda").manual_seed(0)
+
+            def step(built=built, gen=gen):
+                return built(batch, gen)
+
+            losses = [float(step()["loss"]) for _ in range(5)]
+            torch.cuda.synchronize()
+            launches, steps, val = _warp_counts(kw), 5, 0
+        want = {"warp_fwd": steps + val, "warp_bwd": 0, "warp_bwd_coords": steps,
+                "warp_fwd_problems": problems * steps + 8 * val,
+                "warp_bwd_coords_problems": problems * steps}
+        if steps != 5 or launches != want or not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"{arm} arm: launches {launches}, expected {want} over "
+                                 f"{steps} steps and {val} validation batches; losses "
+                                 f"{losses}")
+        ips = steady_state_images_per_sec(step, B, torch.device("cuda"), iters=20, warmup=3)
+        prof = profile_steps(torch, step, n=5, top=4)
+        group = {k: [r for r in prof["own_kernels"] if k in r["kernel"]]
+                 for k in ("warp_forward_group_kernel", "warp_backward_coords_group_kernel")}
+        if any(len(r) != 1 or r[0]["calls_per_step"] != 1.0 for r in group.values()):
+            raise AssertionError(f"{arm} arm: the profile shows grouped warp kernels "
+                                 f"{group}, not one forward and one backward a step")
+        probs = _arm_problems(torch, step, seed=40)
+        if len(probs) != problems:
+            raise AssertionError(f"{arm} arm: {len(probs)} sampling problems a step, "
+                                 f"not {problems}")
+        err_f, err_c = _group_agrees(torch, kw, f"{arm} arm", probs, "zeros")
+        row = {"launches": launches, "train_losses": losses, "problems_per_launch": problems,
+               "problem_shapes": [[list(i.shape), list(x.shape)] for i, x, _, _ in probs],
+               "step_ms": B / ips * 1e3, "img_per_s": ips,
+               "busy_ms": prof["busy_ms_per_step"],
+               "fwd_group_us": group["warp_forward_group_kernel"][0]["us_per_call"],
+               "bwd_group_us": group["warp_backward_coords_group_kernel"][0]["us_per_call"],
+               "max_abs_err": {"out": err_f, "dx_dy": err_c},
+               "cross_check": arm_cross_check(torch, arm) if arm != "default" else None}
+        print(f"  {arm} arm: {row['step_ms']:.3f} ms a step ({ips:.1f} img/s), busy "
+              f"{row['busy_ms']:.3f} ms; grouped warp {row['fwd_group_us']:.2f} + "
+              f"{row['bwd_group_us']:.2f} us a launch, {problems} problems, "
+              f"{[tuple(x.shape[1:]) for _, x, _, _ in probs[:2]]}...; on {card}", flush=True)
+        out[arm] = row
+        del probs
+    base = out["default"]
+    for arm, row in out.items():
+        print(f"  arms: {arm} step {row['step_ms']:.3f} ms (default {base['step_ms']:.3f}), "
+              f"busy {row['busy_ms']:.3f} ms (default {base['busy_ms']:.3f})", flush=True)
+
+    # -f 1: the training-output images through the CLI, with a recording writer
+    writer = RecordingWriter()
+    made = trainer_mod.make_tensorboard_writer
+    trainer_mod.make_tensorboard_writer = lambda path: writer
+    try:
+        _warp_counts(kw, zero=True)
+        trainer = train_cli.main(_selfsup_argv(tmp / "data", tmp / "ckpt", "viz", 1, "-f", "1"))
+        torch.cuda.synchronize()
+    finally:
+        trainer_mod.make_tensorboard_writer = made
+    launches = _warp_counts(kw)
+    val = len(trainer.make_loaders()[1])
+    # the train step's grouped forward (8), the image's single forward (1)
+    # and validation's grouped forwards (8 each)
+    want = {"warp_fwd": 2 + val, "warp_bwd": 0, "warp_bwd_coords": 1,
+            "warp_fwd_problems": 9 + 8 * val, "warp_bwd_coords_problems": 8}
+    tags = {"train/disp", "train/input", "train/warped", "train/diff"}
+    if launches != want or set(writer.images) != tags:
+        raise AssertionError(f"-f 1: launches {launches}, expected {want}; images "
+                             f"{sorted(writer.images)}")
+    # the same images again, alone, beside the CPU port's on the same weights
+    from supervised_dispnet_tpu_torch.training.trainer import Trainer, TrainerConfig
+
+    loader = iter(trainer.make_loaders()[0])
+    item = next(loader)
+    loader.close()
+    trainer.tb, cpu_writer = RecordingWriter(), RecordingWriter()
+    cpu = Trainer(TrainerConfig(loss="selfsup", batch_size=B, save_path=str(tmp / "cpu")),
+                  copy.deepcopy(trainer.model).cpu(), copy.deepcopy(trainer.pose_model).cpu(),
+                  device="cpu")
+    cpu.tb = cpu_writer
+    _warp_counts(kw, zero=True)
+    trainer.log_images(item, 1)
+    torch.cuda.synchronize()
+    single = _warp_counts(kw)
+    cpu.log_images(item, 1)
+    errs = {t: float(np.abs(trainer.tb.images[t] - cpu_writer.images[t]).max()) for t in tags}
+    print(f"  -f 1: images {sorted(writer.images)}; one image's warp launches {single}; "
+          f"card vs CPU max abs err {errs}", flush=True)
+    if (single["warp_fwd"], single["warp_fwd_problems"]) != (1, 1) or sum(single.values()) != 2:
+        raise AssertionError(f"-f: the warped image took launches {single}, not one "
+                             "single-problem forward")
+    # the input is uint8 / 255, which the card computes as a product with
+    # 1 / 255: within an ulp of the CPU's quotient
+    if errs["train/warped"] > 1e-4 or errs["train/input"] > 1e-6:
+        raise AssertionError(f"-f: card vs CPU images differ: {errs} (limits: warped 1e-4, "
+                             "input 1e-6)")
+    out["viz"] = {"launches": launches, "single_image_launches": single,
+                  "card_vs_cpu_max_abs_err": errs}
+    out["seconds"] = time.perf_counter() - t0
+    print(f"  photometric arms phase: {out['seconds']:.1f} s", flush=True)
+    return out
+
+
+@contextlib.contextmanager
+def counted_readbacks(torch):
+    """Counts ``float()`` of a CUDA tensor (the trainer's readback of a
+    step's metrics) inside the block: yields a one-item list."""
+    n, real = [0], torch.Tensor.__float__
+
+    def counted(t):
+        n[0] += t.is_cuda
+        return real(t)
+
+    torch.Tensor.__float__ = counted
+    try:
+        yield n
+    finally:
+        torch.Tensor.__float__ = real
+
+
+def _dispatch_run(torch, data: Path, tmp: Path, k: int, steps: int = 4) -> tuple:
+    """One epoch of ``steps`` self-supervised steps from the seeded nets with
+    ``--loader device`` and k steps a dispatch, through ``Trainer``; returns
+    (the parameters before it, the parameters after it, the logged losses,
+    the readbacks)."""
+    from supervised_dispnet_tpu_torch.models import DispNetS, PoseExpNet
+    from supervised_dispnet_tpu_torch.training.trainer import Trainer, TrainerConfig
+    from supervised_dispnet_tpu_torch.utils.logging import CsvLogger, JsonlLogger, TermLogger
+
+    trainer = Trainer(TrainerConfig(data=str(data), save_path=str(tmp), loss="selfsup",
+                                    batch_size=MAIN_SHAPE[0], epoch_size=steps, loader="device",
+                                    steps_per_dispatch=k),
+                      DispNetS(generator=torch.Generator().manual_seed(0)),
+                      PoseExpNet(generator=torch.Generator().manual_seed(1)))
+    nets = (trainer.model, trainer.pose_model)
+    init = [p.detach().clone() for net in nets for p in net.parameters()]
+    loader = trainer.make_loaders()[0]
+    jsonl = JsonlLogger(tmp / "metrics.jsonl")
+    with counted_readbacks(torch) as readbacks:
+        trainer.train_epoch(loader, TermLogger(1, len(loader), 1), CsvLogger(tmp), jsonl)
+    jsonl.close()
+    losses = [json.loads(x)["loss"] for x in (tmp / "metrics.jsonl").read_text().splitlines()]
+    params = [p.detach().clone() for net in nets for p in net.parameters()]
+    if trainer.update.micro_step != steps:
+        raise AssertionError(f"k={k}: {trainer.update.micro_step} steps, not {steps}")
+    return init, params, losses, readbacks[0]
+
+
+def dispatch_gap(torch, run, ref) -> float:
+    """How far ``run``'s parameters lie from ``ref``'s, as a share of how
+    far ``ref``'s steps moved them: ||theta_run - theta_ref|| / ||theta_ref -
+    theta_0||, over every parameter of both nets at once (``_dispatch_run``'s
+    tuples, from the same seeded start)."""
+    flat = [torch.cat([p.flatten() for p in ps]) for ps in (run[1], ref[1], ref[0])]
+    return float((flat[0] - flat[1]).norm() / (flat[1] - flat[2]).norm())
+
+
+def device_loader_phase(torch, tmp: Path, card: str) -> dict:
+    """``--loader device`` on the card (the packed split resident as uint8,
+    each batch gathered there): its batches against ``--loader threads``'s,
+    bit for bit, over an epoch of the smoke split; 5 self-supervised steps
+    through ``cli.train.main`` with each (losses within rel 1e-4: the card's
+    step is not bit-reproducible, ROADMAP.md C4, and the losses after the
+    first carry that); ``--steps-per-dispatch 4`` through ``Trainer``
+    against 4 single steps (the parameters within 5% of the way the single
+    steps moved them, ``dispatch_gap``: the card's step is not
+    bit-reproducible; the logged loss the mean of the four, rel 1e-4; one
+    readback per 4 steps), and 5 steps as one dispatch through the
+    CLI (its logged loss the mean of ``--loader threads``' five, rel 1e-4);
+    DispResNet-50 BerHu with ``--loader device -j 2 --steps-per-dispatch 3``
+    through the CLI (1 + 1 BerHu launches a step)."""
+    from supervised_dispnet_tpu_torch.cli import train as train_cli
+    from supervised_dispnet_tpu_torch.ops.cuda import losses as kl
+    from supervised_dispnet_tpu_torch.ops.cuda import warp as kw
+
+    B, H, W = MAIN_SHAPE
+    t0 = time.perf_counter()
+    write_packed(tmp / "data", np.random.default_rng(33), H, W, with_depth=False)
+    runs = {}
+    for loader in ("threads", "device"):
+        _warp_counts(kw, zero=True)
+        trainer = train_cli.main(_selfsup_argv(tmp / "data", tmp / "ckpt", loader, 5,
+                                               "--loader", loader, "-j", "2"))
+        torch.cuda.synchronize()
+        batches = []
+        for item in trainer.make_loaders()[0]:
+            batches.append(trainer.prep_train_batch(item))
+        runs[loader] = {"trainer": trainer, "batches": batches, "launches": _warp_counts(kw),
+                        "losses": _read_run(trainer, trainer.step)[0]}
+    a, b = runs["threads"], runs["device"]
+    same = len(a["batches"]) == len(b["batches"]) == 5 and all(
+        x.keys() == y.keys() and all(x[n].dtype == y[n].dtype and torch.equal(x[n], y[n])
+                                     for n in x)
+        for x, y in zip(a["batches"], b["batches"]))
+    loss_rel = max(abs(x - y) / abs(x) for x, y in zip(a["losses"], b["losses"]))
+    print(f"  --loader device vs threads: {len(b['batches'])} batches bit-equal {same} "
+          f"({sorted(b['batches'][0])}); losses {b['losses']} vs {a['losses']}, max rel "
+          f"{loss_rel:.3g}; launches {b['launches']} vs {a['launches']}", flush=True)
+    if not same or loss_rel > 1e-4 or a["launches"] != b["launches"]:
+        raise AssertionError("--loader device: batches, losses (limit rel 1e-4) or launches "
+                             "differ from --loader threads")
+    # the same 5 steps as one dispatch through the CLI: one logged mean
+    _warp_counts(kw, zero=True)
+    trainer = train_cli.main(_selfsup_argv(tmp / "data", tmp / "ckpt", "k5", 5, "--loader",
+                                           "device", "-j", "2", "--steps-per-dispatch", "5"))
+    torch.cuda.synchronize()
+    k5 = [json.loads(x) for x in
+          (Path(trainer.cfg.save_path) / "metrics.jsonl").read_text().splitlines()]
+    k5 = [(e["step"], e["loss"]) for e in k5 if e["event"] == "train_iter"]
+    k5_rel = abs(k5[0][1] - np.mean(a["losses"])) / abs(np.mean(a["losses"]))
+    print(f"  --steps-per-dispatch 5 through the CLI: logged {k5} (rel {k5_rel:.3g} to the "
+          f"mean of --loader threads' losses); launches {_warp_counts(kw)}", flush=True)
+    if (trainer.step != 5 or [s for s, _ in k5] != [5] or k5_rel > 1e-4
+            or _warp_counts(kw) != a["launches"]):
+        raise AssertionError("--steps-per-dispatch 5 through the CLI: steps, logged mean "
+                             "(limit rel 1e-4) or launches off")
+
+    # The card's step is not bit-reproducible (ROADMAP.md C4), so the block
+    # cannot equal 4 single steps bit for bit, and how far two runs of the
+    # same steps part is itself random: scripts/torch_dispatch_spread.py
+    # measured 0.07-1.01% of the way the steps moved the parameters on an
+    # H100, while one step too few lies 22% away. So the block must lie
+    # within 5%.
+    singles = [_dispatch_run(torch, tmp / "data", tmp / f"k1_{n}", 1) for n in range(2)]
+    single = singles[0]
+    block = _dispatch_run(torch, tmp / "data", tmp / "k4", 4)
+    gap = max(dispatch_gap(torch, block, s) for s in singles)
+    spread = dispatch_gap(torch, singles[1], single)
+    mean_rel = abs(block[2][0] - np.mean(single[2])) / abs(np.mean(single[2]))
+    print(f"  --steps-per-dispatch 4: parameters vs 4 single steps {gap:.3g} of the steps' "
+          f"movement (limit 0.05; two single runs part by {spread:.3g}); logged loss "
+          f"{block[2]} vs the mean of {single[2]} (rel {mean_rel:.3g}); readbacks {block[3]} "
+          f"for 4 steps (single: {single[3]})", flush=True)
+    if gap > 0.05 or mean_rel > 1e-4 or block[3] != 1 or single[3] != 4:
+        raise AssertionError(f"--steps-per-dispatch 4: parameters ({gap:.3g} of the movement, "
+                             f"limit 0.05), logged loss (rel {mean_rel:.3g}, limit 1e-4) or "
+                             f"readbacks ({block[3]}, {single[3]}) off")
+
+    write_packed(tmp / "sdata", np.random.default_rng(34), H, W)
+    kl.berhu_fwd_launches = kl.berhu_bwd_launches = kl.berhu_fwd_problems = 0
+    trainer = train_cli.main([str(tmp / "sdata"), "--network", "disp_res_50", "--loss", "berhu",
+                              "-b", str(B), "--epoch-size", "3", "--epochs", "1",
+                              "--loader", "device", "-j", "2", "--steps-per-dispatch", "3",
+                              "--checkpoints-dir", str(tmp / "ckpt"), "--name", "berhu"])
+    torch.cuda.synchronize()
+    berhu = {"berhu_fwd": kl.berhu_fwd_launches, "berhu_bwd": kl.berhu_bwd_launches,
+             "berhu_fwd_problems": kl.berhu_fwd_problems}
+    losses, epoch = _read_run(trainer, 1)  # one logged mean for the 3 steps
+    print(f"  --loader device --steps-per-dispatch 3 BerHu DispResNet-50: {trainer.step} "
+          f"steps, launches {berhu}, logged loss {losses}, val abs_rel "
+          f"{epoch['abs_rel']:.4f}", flush=True)
+    if trainer.step != 3 or berhu != {"berhu_fwd": 3, "berhu_bwd": 3, "berhu_fwd_problems": 12}:
+        raise AssertionError(f"--loader device BerHu: launches {berhu}")
+    out = {"batches_bit_equal": same, "loss_max_rel": loss_rel,
+           "losses": {k: r["losses"] for k, r in runs.items()},
+           "dispatch": {"params_gap_over_movement": gap, "single_spread": spread,
+                        "logged": block[2], "single_losses": single[2],
+                        "readbacks": {"k4": block[3], "k1": single[3]},
+                        "cli_k5": {"logged": k5, "rel_to_threads_mean": k5_rel}},
+           "berhu": {"launches": berhu, "losses": losses}, "card": card}
+    out["seconds"] = time.perf_counter() - t0
+    print(f"  device loader phase: {out['seconds']:.1f} s", flush=True)
+    return out
+
+
+CONVERGENCE_RUNS = {  # the short form of scripts/torch_convergence_check.py
+    "supervised": ["--steps", "60", "--eval-every", "30"],
+    "selfsup": ["--loss", "selfsup", "--steps", "60", "--batch", "8", "--pool", "2",
+                "--eval-every", "30"],
+}
+
+
+def convergence_phase(torch) -> dict:
+    """``scripts/torch_convergence_check.py`` for a few dozen steps of each
+    task on the card: its initial and final metrics. The supervised val
+    abs_rel must halve (on the H100: 0.994 -> 0.229 in 60 steps, 0.092 in
+    300; PERF.md); the self-supervised metrics only finite: 60 steps sit in
+    the task's early transient (0.337 -> 0.334, its ATE up; 600 steps 0.308)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_convergence_check", REPO / "scripts" / "torch_convergence_check.py")
+    script = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(script)
+    out = {}
+    for name, argv in CONVERGENCE_RUNS.items():
+        r = script.main(argv)
+        out[name] = {k: r[k] for k in ("initial", "final", "seconds", "steps", "batch")}
+    sup, selfsup = out["supervised"], out["selfsup"]
+    finite = all(math.isfinite(v) for m in (selfsup["initial"], selfsup["final"])
+                 for v in m.values())
+    if not (sup["final"] < 0.5 * sup["initial"]) or not finite:
+        raise AssertionError(f"convergence: supervised abs_rel {sup['initial']:.4f} -> "
+                             f"{sup['final']:.4f} (must halve); self-supervised {selfsup}")
+    return out
+
+
 def inverse_warp_phase(torch, device: str = "cuda") -> dict:
     """``ops.warp.inverse_warp`` as a user calls it, with its default
     ``diff_img=True``, at the main path's shape, and a backward into the
@@ -3031,11 +3501,13 @@ def cross_check(torch, device: str = "cuda", checks=SUPERVISED_CHECKS) -> dict:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
 
 
-def _one_selfsup_step(torch, disp, pose, batch: dict, device, plain: bool = False):
+def _one_selfsup_step(torch, disp, pose, batch: dict, device, plain: bool = False,
+                      photo_phases=None, **step_kw):
     """One self-supervised train step (DispNetS + PoseExpNet), augmentation
-    off; ``plain=True`` swaps the plain sampler in for the warp kernels.
-    Returns ({loss, photo_loss, exp_loss, smooth_loss}, {name: grad on the
-    CPU})."""
+    off, with the step builder's ``step_kw`` (a photometric arm) and the
+    stochastic arm's ``photo_phases``; ``plain=True`` swaps the plain
+    sampler in for the warp kernels. Returns ({loss, photo_loss, exp_loss,
+    smooth_loss}, {name: grad on the CPU})."""
     from supervised_dispnet_tpu_torch.data.augment import AugmentConfig
     from supervised_dispnet_tpu_torch.ops import warp as wp
     from supervised_dispnet_tpu_torch.ops.sampling import bilinear_sample
@@ -3043,7 +3515,7 @@ def _one_selfsup_step(torch, disp, pose, batch: dict, device, plain: bool = Fals
 
     no_aug = AugmentConfig(flip=False, scale_crop=False, color_jitter=False)
     opt = torch.optim.Adam(list(disp.parameters()) + list(pose.parameters()), lr=1e-4)
-    step = ts.make_selfsup_train_step(disp, pose, opt, aug=no_aug)
+    step = ts.make_selfsup_train_step(disp, pose, opt, aug=no_aug, **step_kw)
     kernel_sample, kernel_many = wp.sample, wp.sample_many
     if plain:
         wp.sample = lambda i, x, y, mode, diff_img: bilinear_sample(
@@ -3051,13 +3523,29 @@ def _one_selfsup_step(torch, disp, pose, batch: dict, device, plain: bool = Fals
         wp.sample_many = lambda imgs, xs, ys, mode: [
             bilinear_sample(i.detach(), x, y, mode) for i, x, y in zip(imgs, xs, ys)]
     try:
-        out = step({k: torch.from_numpy(v).to(device) for k, v in batch.items()})
+        out = step({k: torch.from_numpy(v).to(device) for k, v in batch.items()},
+                   photo_phases=photo_phases)
     finally:
         wp.sample, wp.sample_many = kernel_sample, kernel_many
     grads = {f"{tag}.{n}": p.grad.detach().cpu()
              for tag, net in (("disp", disp), ("pose", pose))
              for n, p in net.named_parameters()}
     return {k: float(v) for k, v in out.items()}, grads
+
+
+def _selfsup_check_inputs(torch) -> tuple[dict, tuple]:
+    """The self-supervised cross-checks' batch at the main-path shape (uint8
+    snippets, KITTI-like intrinsics) and seeded DispNetS + PoseExpNet (the
+    init the CLI draws)."""
+    from supervised_dispnet_tpu_torch.models import DispNetS, PoseExpNet
+
+    B, H, W = MAIN_SHAPE
+    rng = np.random.default_rng(6)
+    batch = {"tgt": rng.integers(0, 256, (B, H, W, 3), dtype=np.uint8),
+             "ref_imgs": rng.integers(0, 256, (B, 2, H, W, 3), dtype=np.uint8),
+             "intrinsics": np.tile(np.array(KITTI_K, np.float32), (B, 1, 1))}
+    return batch, (DispNetS(generator=torch.Generator().manual_seed(0)),
+                   PoseExpNet(generator=torch.Generator().manual_seed(1)))
 
 
 def selfsup_cross_check(torch, device: str = "cuda") -> dict:
@@ -3079,18 +3567,10 @@ def selfsup_cross_check(torch, device: str = "cuda") -> dict:
       entry; an elementwise rtol would measure that noise, not the kernels.
     - Card (kernels) against the CPU (plain sampler).
     """
-    from supervised_dispnet_tpu_torch.models import DispNetS, PoseExpNet
-
     flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
     torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
     try:
-        B, H, W = MAIN_SHAPE
-        rng = np.random.default_rng(6)
-        batch = {"tgt": rng.integers(0, 256, (B, H, W, 3), dtype=np.uint8),
-                 "ref_imgs": rng.integers(0, 256, (B, 2, H, W, 3), dtype=np.uint8),
-                 "intrinsics": np.tile(np.array(KITTI_K, np.float32), (B, 1, 1))}
-        base = (DispNetS(generator=torch.Generator().manual_seed(0)),
-                PoseExpNet(generator=torch.Generator().manual_seed(1)))
+        batch, base = _selfsup_check_inputs(torch)
 
         def step(dev, plain):
             return _one_selfsup_step(torch, *(copy.deepcopy(m).to(dev) for m in base),
@@ -3179,8 +3659,11 @@ def main() -> int:
                                  f"{serve_launches}")
         nets = networks_phase(torch, Path(tmp), card, tree)
         opts = options_phase(torch, Path(tmp) / "options", card)
+        arms = photometric_arms_phase(torch, Path(tmp) / "arms", card)
+        loaders = device_loader_phase(torch, Path(tmp) / "loaders", card)
     iw = inverse_warp_phase(torch)
     xc = {**cross_check(torch), **selfsup_cross_check(torch)}
+    conv = convergence_phase(torch)
 
     # each kernel's launches on the path that runs it: BerHu on the
     # supervised path (its grouped launches: the single-problem entries
@@ -3196,6 +3679,13 @@ def main() -> int:
                 "warp_bwd_coords_group": ss["launches"]["warp_bwd_coords"], **cl["launches"]}
     for name, entry in kernels.items():
         entry["launches"] = launches[name]
+    # the photometric arms' grouped launches (5 steps each; validation's
+    # beside the CLI's arms) and the training-output image's single forward
+    for name, key in (("warp_fwd_group", "warp_fwd"),
+                      ("warp_bwd_coords_group", "warp_bwd_coords")):
+        kernels[name]["arm_launches"] = {arm: arms[arm]["launches"][key] for arm in PHOTO_ARMS}
+    kernels["warp_fwd"]["training_output_launches"] = arms["viz"]["single_image_launches"][
+        "warp_fwd"]
     if not all(e["launches"] > 0 for e in kernels.values()):
         raise AssertionError(f"a kernel was not launched on its path: {launches}")
     print(json.dumps({"slices": {
@@ -3211,6 +3701,7 @@ def main() -> int:
     print(json.dumps({"pose": po, "serving": sv, "networks": nets,
                       "pose_serving_kernel_launches": serve_launches}))
     print(json.dumps({"options": opts}))
+    print(json.dumps({"photometric_arms": arms, "loaders": loaders, "convergence": conv}))
     print(json.dumps({"kernels": list(kernels.values())}))
     print(card)
     print(json.dumps({"ok": True, "device": {

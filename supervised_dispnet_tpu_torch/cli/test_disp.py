@@ -28,7 +28,7 @@ from supervised_dispnet_tpu_torch.cli import parse_args_or_raise
 
 # JAX CLI flags of the int8 serving path, which a later slice ports
 LATER_FLAGS = frozenset(("--int8", "--calib-batches", "--percentile"))
-LATER_WHERE = "ROADMAP.md Queue A6 (int8 serving)"
+LATER_WHERE = "ROADMAP.md Queue A5 (int8 serving)"
 METRICS = ("abs_rel", "sq_rel", "rmse", "rmse_log", "a1", "a2", "a3")
 
 

@@ -12,6 +12,9 @@ supervised, depth-as-classification and self-supervised paths
   python -m supervised_dispnet_tpu_torch.cli.train /data/kitti_packed \\
       --network disp_res_50 --loss berhu -b 4 --bf16 --ema-decay 0.999 \\
       --accum-steps 2 --pretrained-encoder resnet50.pth --imagenet-normalization
+  python -m supervised_dispnet_tpu_torch.cli.train /data/kitti_packed \\
+      --network dispnet --loss selfsup --stochastic-photo 2 -f 100 \\
+      --loader device --steps-per-dispatch 4
 
 Reads packed datasets (``data/packed.py``). Runs on the card unless
 ``--device cpu`` is given. A JAX flag whose feature is not ported yet raises
@@ -28,10 +31,7 @@ from pathlib import Path
 from supervised_dispnet_tpu_torch.cli import parse_args_or_raise
 
 # JAX CLI flags of features that later slices port (see ROADMAP.md)
-_LATER_FLAGS = frozenset((
-    "--qat", "--spatial-shards", "--loader", "-j", "--workers", "--steps-per-dispatch",
-    "--half-res-photo", "--stochastic-photo", "-f", "--training-output-freq",
-))
+_LATER_FLAGS = frozenset(("--qat", "--spatial-shards"))
 REMAT_CHOICES = ("full", "conv")
 
 
@@ -126,6 +126,28 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--profile-steps", type=int, default=0,
                    help="> 0: a torch.profiler trace of this many steady-state train "
                         "steps (from the second) into <run>/profile")
+    p.add_argument("--half-res-photo", action="store_true",
+                   help="compute the photometric loss one octave down (deviates "
+                        "from the reference loss)")
+    p.add_argument("--stochastic-photo", type=int, default=1, metavar="N",
+                   help="evaluate the photometric loss at every N-th pixel per axis "
+                        "at a random per-step phase (an unbiased 1/N^2 subsample; "
+                        "deviates from the reference loss)")
+    p.add_argument("-f", "--training-output-freq", type=int, default=0,
+                   help="log disparity (and, self-supervised, warp) images to "
+                        "tensorboard every N iterations (a no-op writer where "
+                        "tensorboardX does not import)")
+    p.add_argument("--loader", default="threads", choices=["threads", "grain", "device"],
+                   help="'threads' gathers batches on the host; 'device' keeps the "
+                        "packed train split on the card and gathers each batch "
+                        "there; 'grain' is the JAX package's and is not ported")
+    p.add_argument("-j", "--workers", type=int, default=4,
+                   help="host threads gathering batches (the same batches for any "
+                        "count)")
+    p.add_argument("--steps-per-dispatch", type=int, default=1,
+                   help="--loader device only: run this many train steps from one "
+                        "block of index batches, their metrics read back once "
+                        "(logged as means over the block)")
     p.add_argument("--max-depth", type=float, default=80.0)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--img-height", type=int, default=128,
@@ -231,7 +253,10 @@ def main(argv: list[str] | None = None):
         imagenet_normalization=args.imagenet_normalization, hue=args.hue,
         bf16=args.bf16, remat=args.remat or False, ema_decay=args.ema_decay,
         accum_steps=args.accum_steps, debug_nans=args.debug_nans,
-        profile_steps=args.profile_steps, resume=args.resume)
+        profile_steps=args.profile_steps, resume=args.resume,
+        half_res_photo=args.half_res_photo, stochastic_photo=args.stochastic_photo,
+        training_output_freq=args.training_output_freq, loader=args.loader,
+        workers=args.workers, steps_per_dispatch=args.steps_per_dispatch)
     head = "classification" if args.loss == "classification" else "disp"
     model = get_disp_net(args.network, head=head, num_bins=args.num_bins,
                          multiscale_classification=args.multiscale_classification,

@@ -2,14 +2,18 @@
 ``supervised_dispnet_tpu/data/loader.py`` for datasets with a vectorized
 ``get_batch(ids)`` (the packed datasets).
 
-A producer thread gathers upcoming batches while the card computes; batches
-are dicts of stacked numpy arrays with static shapes (drop_last).
+A producer thread gathers upcoming batches while the card computes, with
+``num_workers`` threads gathering batches side by side and handing them on
+in order, so every worker count gives the same batches; batches are dicts
+of stacked numpy arrays with static shapes (drop_last).
 """
 
 from __future__ import annotations
 
+import collections
 import queue
 import threading
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -18,8 +22,10 @@ class BatchLoader:
     """Iterates dict batches over a dataset with ``__len__`` and ``get_batch``."""
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = True,
-                 prefetch: int = 4, seed: int = 0, epoch_size: int | None = None):
+                 num_workers: int = 4, prefetch: int = 4, seed: int = 0,
+                 epoch_size: int | None = None):
         self.dataset = dataset
+        self.num_workers = max(1, num_workers)
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.prefetch = prefetch
@@ -57,9 +63,17 @@ class BatchLoader:
             # an exception in the producer must reach the consumer, or the
             # training loop would wait on q.get() forever
             try:
-                for idxs in batches:
-                    if not put(self.dataset.get_batch(idxs)):
-                        return
+                with ThreadPoolExecutor(self.num_workers) as pool:
+                    # up to num_workers batches in flight, handed on in order
+                    running: collections.deque = collections.deque()
+                    for idxs in batches:
+                        running.append(pool.submit(self.dataset.get_batch, idxs))
+                        if len(running) == self.num_workers and not put(
+                                running.popleft().result()):
+                            return
+                    while running:
+                        if not put(running.popleft().result()):
+                            return
                 put(None)
             except BaseException as e:  # noqa: BLE001 - re-raised by the consumer
                 put(e)

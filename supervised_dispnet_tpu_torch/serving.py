@@ -42,7 +42,7 @@ from supervised_dispnet_tpu_torch.data.augment import (
     HALF_MEAN, HALF_STD, IMAGENET_MEAN, IMAGENET_STD, normalize_images)
 from supervised_dispnet_tpu_torch.utils.device import resolve_device, set_fp32_math
 
-INT8_WHERE = "ROADMAP.md Queue A6 (int8 serving)"
+INT8_WHERE = "ROADMAP.md Queue A5 (int8 serving)"
 
 
 @dataclass(frozen=True)

@@ -279,7 +279,9 @@ def make_selfsup_train_step(
     debug_nans: bool = False,
     remat_photo: bool = False,
     half_res_photo: bool = False,
+    batch_refs: bool = False,
     stochastic_photo: int = 1,
+    photo_generator: torch.Generator | None = None,
     fake_quant: bool = False,
 ):
     """Build the self-supervised step (photometric + explainability +
@@ -291,23 +293,29 @@ def make_selfsup_train_step(
     (``ApplyGradients``: ``ema_decay``, ``accum_steps``, ``debug_nans``;
     parameter names ``disp.*`` and ``pose.*``). ``mask_weight == 0`` drops
     the explainability term (and the pose net's masks). ``remat_photo``
-    checkpoints the photometric terms (``--remat``).
+    checkpoints the photometric terms (``--remat``); ``half_res_photo``,
+    ``batch_refs`` and ``stochastic_photo`` N > 1 pick the photometric
+    loss's arms (``losses/selfsup.py``). The stochastic arm's phases are
+    drawn on the host from ``photo_generator``, a CPU generator (a seed-0 one
+    by default), as the JAX step draws them from its ``photo_key``;
+    ``step(..., photo_phases=((oy, ox),) * 4)`` fixes them.
 
     batch: {'tgt': (B, H, W, 3), 'ref_imgs': (B, R, H, W, 3), uint8 or
     [0, 1] float; 'intrinsics': (B, 3, 3)}, on the models' device. The warps
-    run the CUDA kernels on the card and the plain sampler on the CPU. The
-    JAX step's half-res and stochastic photometric terms and QAT are not
-    ported and raise; see ROADMAP.md.
+    run the CUDA kernels on the card and the plain sampler on the CPU. QAT
+    (``fake_quant``) is not ported and raises; see ROADMAP.md.
     """
-    _not_ported(half_res_photo=half_res_photo, stochastic_photo=stochastic_photo > 1,
-                fake_quant=fake_quant)
+    _not_ported(fake_quant=fake_quant)
+    if photo_generator is None:
+        photo_generator = torch.Generator().manual_seed(0)
     with_exp = mask_weight > 0
     named = [(f"{tag}.{n}", p) for tag, net in (("disp", disp_model), ("pose", pose_model))
              for n, p in net.named_parameters()]
     update = ApplyGradients(named, optimizer, ema_decay, accum_steps, debug_nans)
 
     def step(batch: dict, generator: torch.Generator | None = None,
-             draws: dict | None = None) -> dict[str, torch.Tensor]:
+             draws: dict | None = None,
+             photo_phases: tuple | None = None) -> dict[str, torch.Tensor]:
         snippet = torch.cat([imgs_to_float(batch["tgt"])[:, None],
                              imgs_to_float(batch["ref_imgs"])], dim=1)
         imgs, K = augment_batch(snippet, batch["intrinsics"], config=aug,
@@ -322,7 +330,10 @@ def make_selfsup_train_step(
         exp_masks = exp_masks[:num_scales] if with_exp else None
         photo, _ = photometric_reconstruction_loss(
             tgt, refs, K, disps_to_depths(disps), exp_masks, pose,
-            rotation_mode=rotation_mode, padding_mode=padding_mode, remat=remat_photo)
+            rotation_mode=rotation_mode, padding_mode=padding_mode, remat=remat_photo,
+            half_res=half_res_photo, batch_refs=batch_refs,
+            stochastic_stride=stochastic_photo, generator=photo_generator,
+            stochastic_phases=photo_phases)
         exp_l = (explainability_loss(exp_masks) if with_exp
                  else torch.zeros((), dtype=torch.float32, device=tgt.device))
         smooth = smooth_loss(disps)

@@ -5,8 +5,10 @@ per-epoch train pass, validation against GT depth (or, without GT, with the
 self-supervised losses), CSV/JSONL logs, and checkpoints with a best-copy
 when the validation metric improves; with the JAX trainer's options: a
 bf16 trunk, an EMA shadow that validation uses, gradient accumulation, an
-exact resume, hue jitter and ImageNet normalisation, the remat photometric
-terms, a NaN check and a trace of steady-state steps.
+exact resume, hue jitter and ImageNet normalisation, the remat, half-res
+and stochastic photometric terms, a NaN check, a trace of steady-state
+steps, training-output images, and the loaders: host threads, or the split
+held on the device (``--loader device``) with k steps a dispatch.
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ import contextlib
 import dataclasses
 import json
 import math
-import shutil
+import os
 import time
 from pathlib import Path
 
@@ -24,19 +26,23 @@ import torch
 
 from supervised_dispnet_tpu_torch.data.augment import (
     HALF_MEAN, HALF_STD, IMAGENET_MEAN, IMAGENET_STD, AugmentConfig, normalize_images)
+from supervised_dispnet_tpu_torch.data.device_cache import DeviceResidentSequence
 from supervised_dispnet_tpu_torch.data.loader import BatchLoader
 from supervised_dispnet_tpu_torch.data.packed import (
     PackedSequenceDataset, PackedValidationSet, is_packed)
 from supervised_dispnet_tpu_torch.losses.classification import DepthBins
 from supervised_dispnet_tpu_torch.models.common import set_compute_dtype
+from supervised_dispnet_tpu_torch.ops.warp import inverse_warp
 from supervised_dispnet_tpu_torch.training.train_step import (
-    SUPERVISED_LOSSES, make_eval_step, make_selfsup_eval_step, make_selfsup_train_step,
-    make_supervised_train_step, output_depth)
+    SUPERVISED_LOSSES, disps_to_depths, imgs_to_float, make_eval_step,
+    make_selfsup_eval_step, make_selfsup_train_step, make_supervised_train_step,
+    output_depth)
 from supervised_dispnet_tpu_torch.utils.checkpoint import load_torch_state_dict
 from supervised_dispnet_tpu_torch.utils.device import resolve_device, set_fp32_math
 from supervised_dispnet_tpu_torch.utils.logging import (
-    AverageMeter, CsvLogger, JsonlLogger, TermLogger)
+    AverageMeter, CsvLogger, JsonlLogger, TermLogger, make_tensorboard_writer)
 from supervised_dispnet_tpu_torch.utils.profiling import trace
+from supervised_dispnet_tpu_torch.utils.viz import tensor2array
 
 CHECKPOINT_NAME = "dispnet_checkpoint.pth.tar"
 BEST_NAME = "dispnet_model_best.pth.tar"
@@ -86,6 +92,27 @@ class TrainerConfig:
     debug_nans: bool = False  # raise at the first non-finite loss or gradient
     profile_steps: int = 0  # > 0: trace this many steady-state steps
     resume: bool = False  # continue save_path's last checkpoint exactly
+    half_res_photo: bool = False  # the photometric pyramid one octave down
+    stochastic_photo: int = 1  # > 1: the photometric term at every N-th pixel
+    #   per axis, at a phase drawn each step (unbiased; losses/selfsup.py)
+    training_output_freq: int = 0  # > 0: disp / warp images every N iterations
+    loader: str = "threads"  # threads (BatchLoader) | device (the split on the card)
+    workers: int = 4  # BatchLoader's gather threads
+    steps_per_dispatch: int = 1  # loader="device": k steps from one block of
+    #   k index batches, their metrics read back once (logged as means)
+
+
+def _save_linked(blob: dict, path: Path, best: Path | None) -> None:
+    """``torch.save`` ``blob`` to ``path`` through a temporary name, so each
+    save is a new file, and, when ``best`` is given, hard-link ``best`` to
+    it: one copy of the bytes on disk, and a later save of ``path`` leaves
+    ``best`` as it was."""
+    tmp = path.with_name(path.name + ".tmp")
+    torch.save(blob, tmp)
+    os.replace(tmp, path)
+    if best is not None:
+        best.unlink(missing_ok=True)
+        os.link(path, best)
 
 
 def aug_config(cfg: TrainerConfig) -> AugmentConfig:
@@ -168,6 +195,10 @@ class Trainer:
         self.lr_schedule = build_lr_schedule(cfg)
         self.aug = aug_config(cfg)
         self.generator = torch.Generator(device=self.device).manual_seed(cfg.seed)
+        # the stochastic photometric phases, drawn on the host
+        self.photo_generator = torch.Generator().manual_seed(cfg.seed)
+        self.tb = None  # the image writer: fit makes one unless one is set
+        self._device_data: DeviceResidentSequence | None = None  # loader="device"
         self.val_with_gt = True  # set by make_loaders
         self._profiled = False  # the --profile-steps trace is written
         self.bins = DepthBins(num_bins=cfg.num_bins, max_depth=cfg.max_depth)
@@ -181,7 +212,9 @@ class Trainer:
                 smooth_weight=cfg.smooth_loss_weight, rotation_mode=cfg.rotation_mode,
                 padding_mode=cfg.padding_mode, aug=self.aug, ema_decay=cfg.ema_decay,
                 accum_steps=cfg.accum_steps, debug_nans=cfg.debug_nans,
-                remat_photo=bool(cfg.remat))
+                remat_photo=bool(cfg.remat), half_res_photo=cfg.half_res_photo,
+                stochastic_photo=cfg.stochastic_photo,
+                photo_generator=self.photo_generator)
             self.selfsup_eval_step = make_selfsup_eval_step(
                 self.model, self.pose_model, nb_ref_imgs=cfg.sequence_length - 1,
                 rotation_mode=cfg.rotation_mode, padding_mode=cfg.padding_mode,
@@ -206,7 +239,11 @@ class Trainer:
     def prep_train_batch(self, np_batch: dict[str, np.ndarray]) -> dict[str, torch.Tensor]:
         """uint8 images, fp16 depth: half the depth bytes to the card; exact for
         the sparse zeros, < 0.05% relative below 80 m. Self-supervised
-        batches carry the reference frames and no depth."""
+        batches carry the reference frames and no depth. With
+        ``loader="device"`` the batch is an index dict, and it is gathered
+        on the card from the resident split."""
+        if self._device_data is not None:
+            return self._device_data.gather(self._device_data.upload(np_batch))
         if self.selfsup:
             return self.to_device({k: np_batch[k] for k in ("tgt", "ref_imgs", "intrinsics")})
         return self.to_device({"tgt": np_batch["tgt"],
@@ -220,6 +257,19 @@ class Trainer:
         for group in self.optimizer.param_groups:
             group["lr"] = self.lr_schedule(self.step)
         return self._train_step(batch, self.generator)
+
+    def train_item(self, item: dict[str, np.ndarray]) -> dict[str, torch.Tensor]:
+        """The steps of one loader item: one batch, or with
+        ``steps_per_dispatch`` k > 1 a block of k index batches, uploaded in
+        one copy, whose k steps return the means of their metrics (one
+        readback for the k steps, as the JAX ``lax.scan`` arm logs them)."""
+        k = self.cfg.steps_per_dispatch
+        if self._device_data is None or k == 1:
+            return self.train_step(self.prep_train_batch(item))
+        idx = self._device_data.upload(item)
+        runs = [self.train_step(self._device_data.gather({n: v[j] for n, v in idx.items()}))
+                for j in range(k)]
+        return {n: torch.stack([m[n] for m in runs]).mean() for n in runs[0]}
 
     @torch.no_grad()
     def predict(self, images) -> np.ndarray:
@@ -236,17 +286,39 @@ class Trainer:
         return (1.0 / depth.clamp(min=1e-3)).cpu().numpy()
 
     # -- data ---------------------------------------------------------------
-    def make_loaders(self) -> tuple[BatchLoader, BatchLoader]:
+    def make_loaders(self) -> tuple[BatchLoader | DeviceResidentSequence, BatchLoader]:
+        """The train loader (host threads, or with ``loader="device"`` the
+        split on the card, yielding index dicts) and the validation loader,
+        always on the host."""
         cfg = self.cfg
+        if cfg.loader == "grain":
+            raise NotImplementedError(
+                "--loader grain (a multi-process pipeline of the JAX package, "
+                "supervised_dispnet_tpu/data/grain_loader.py) is not ported; use "
+                "--loader threads or --loader device")
+        if cfg.loader not in ("threads", "device"):
+            raise ValueError(f"unknown loader {cfg.loader!r}")
+        if cfg.steps_per_dispatch < 1 or (cfg.steps_per_dispatch > 1
+                                          and cfg.loader != "device"):
+            raise ValueError(f"steps_per_dispatch={cfg.steps_per_dispatch} needs "
+                             "loader='device' (and must be >= 1)")
         if not is_packed(cfg.data):
             raise NotImplementedError(
                 f"{cfg.data!r} is not a packed dataset: the port reads packed "
                 "splits only (data/packed.py); JPEG dump trees: see ROADMAP.md")
         # supervised training never reads the reference frames
-        train_set = PackedSequenceDataset(
-            cfg.data, seed=cfg.seed, train=True,
-            sequence_length=cfg.sequence_length if self.selfsup else 1,
-            with_depth=not self.selfsup, uint8=True)
+        seq = dict(sequence_length=cfg.sequence_length if self.selfsup else 1,
+                   with_depth=not self.selfsup)
+        if cfg.loader == "device":
+            self._device_data = train_loader = DeviceResidentSequence(
+                cfg.data, cfg.batch_size, self.device, train=True, seed=cfg.seed,
+                epoch_size=cfg.epoch_size or None, steps_per_item=cfg.steps_per_dispatch,
+                **seq)
+        else:
+            train_loader = BatchLoader(
+                PackedSequenceDataset(cfg.data, seed=cfg.seed, train=True, uint8=True, **seq),
+                cfg.batch_size, shuffle=True, num_workers=cfg.workers, seed=cfg.seed,
+                epoch_size=cfg.epoch_size or None)
         try:
             val_set = PackedValidationSet(cfg.data, uint8=True)
         except FileNotFoundError:
@@ -261,9 +333,8 @@ class Trainer:
             val_set = PackedSequenceDataset(cfg.data, seed=cfg.seed, train=False,
                                             sequence_length=cfg.sequence_length,
                                             shuffle=False, uint8=True)
-        train_loader = BatchLoader(train_set, cfg.batch_size, shuffle=True,
-                                   seed=cfg.seed, epoch_size=cfg.epoch_size or None)
-        val_loader = BatchLoader(val_set, cfg.batch_size, shuffle=False)
+        val_loader = BatchLoader(val_set, cfg.batch_size, shuffle=False,
+                                 num_workers=cfg.workers)
         return train_loader, val_loader
 
     # -- loops --------------------------------------------------------------
@@ -274,15 +345,17 @@ class Trainer:
         t_batch = AverageMeter(precision=3)
         end = time.time()
         step0 = self.update.micro_step
+        k = self.cfg.steps_per_dispatch
+        freq = self.cfg.training_output_freq
 
         def consume(i: int, metrics) -> None:
-            # read one step late: step i's loss is read after step i+1 is
+            # read one item late: item i's loss is read after item i+1 is
             # queued, so the host never leaves the card idle waiting on it
             loss = float(metrics["loss"])
             meter.update(loss)
             csv.write_iter([loss])
             logger.train_update(i, f"batch {t_batch} data {t_data} loss {meter}")
-            jsonl.log(event="train_iter", step=step0 + i + 1, loss=loss)
+            jsonl.log(event="train_iter", step=step0 + (i + 1) * k, loss=loss)
 
         # --profile-steps: steps 1 .. prof (step 0 builds the kernels and
         # picks cuDNN's algorithms), the window clamped to the epoch
@@ -294,7 +367,7 @@ class Trainer:
                 if prof > 0 and i == 1:
                     tracing.enter_context(trace(Path(self.cfg.save_path) / "profile",
                                                 self.device))
-                metrics = self.train_step(self.prep_train_batch(np_batch))
+                metrics = self.train_item(np_batch)
                 if prof > 0 and i == prof:
                     tracing.close()
                     self._profiled = True
@@ -305,9 +378,61 @@ class Trainer:
                 pending = (i, metrics)
                 t_batch.update(time.time() - end)
                 end = time.time()
+                if self.tb is not None and freq and i % freq == 0:
+                    self.log_images(np_batch, step0 + (i + 1) * k)
         if pending is not None:
             consume(*pending)
         return meter.avg[0]
+
+    @torch.no_grad()
+    def log_images(self, item: dict[str, np.ndarray], step: int) -> None:
+        """The JAX trainer's training-output images (reference: the
+        tensorboard images of ``train.py``), written to ``self.tb``: the
+        first snippet's finest disparity (train/disp) and its input
+        (train/input), and for self-supervised training its first reference
+        frame inverse-warped into it (train/warped) with the masked
+        difference (train/diff). A B=1 forward of the live weights in eval
+        mode outside the train step, so the images exist under ``--remat``
+        too; on the card the warp is one single-problem forward launch."""
+        if self._device_data is not None:
+            # an index dict, (k, B)-stacked under steps_per_dispatch: the
+            # first snippet, gathered from the resident split
+            k = self.cfg.steps_per_dispatch
+            first = {n: (v[0] if k > 1 else v)[:1] for n, v in item.items()}
+            batch = self._device_data.gather(self._device_data.upload(first))
+        else:
+            batch = {n: torch.from_numpy(np.ascontiguousarray(item[n][:1])).to(self.device)
+                     for n in ("tgt", "ref_imgs", "intrinsics")}
+        img, intr = batch["tgt"], batch["intrinsics"]
+        refs = batch["ref_imgs"] if self.selfsup else None
+        img = imgs_to_float(img)
+        tgt_n = normalize_images(img, self.aug.mean, self.aug.std)
+        self.model.eval()
+        out = self.model(tgt_n)
+        if self.classification:
+            disp = 1.0 / output_depth(out, self.bins).clamp(min=1e-3)
+        elif isinstance(out, list):
+            disp = out[0][..., 0]
+        else:
+            disp = 1.0 / out[..., 0].clamp(min=1e-3)
+        self.tb.add_image("train/disp", tensor2array(disp[0].cpu().numpy()).transpose(2, 0, 1),
+                          step)
+        img0 = img[0].cpu().numpy()
+        self.tb.add_image("train/input", img0.transpose(2, 0, 1), step)
+        if refs is None:
+            return
+        refs = imgs_to_float(refs)
+        refs_n = normalize_images(refs, self.aug.mean, self.aug.std)
+        self.pose_model.eval()
+        _, pose = self.pose_model(tgt_n, [refs_n[:, r] for r in range(refs.shape[1])])
+        warped, valid = inverse_warp(refs[:, 0], disps_to_depths(out[:1])[0], pose[:, 0],
+                                     intr.to(torch.float32), self.cfg.rotation_mode,
+                                     self.cfg.padding_mode)
+        warped = warped[0].cpu().numpy()
+        diff = np.abs(img0 - warped).mean(-1) * valid[0].cpu().numpy()
+        self.tb.add_image("train/warped", np.clip(warped, 0, 1).transpose(2, 0, 1), step)
+        self.tb.add_image("train/diff", tensor2array(diff, max_value=1.0).transpose(2, 0, 1),
+                          step)
 
     def validate(self, loader, logger: TermLogger) -> dict[str, float]:
         """Validation against GT, or with the self-supervised losses when
@@ -334,26 +459,25 @@ class Trainer:
                         best: float = math.inf) -> None:
         """The disp model's live weights (``state_dict``, reference layout:
         what the eval CLIs load, as the JAX eval loads ``params``), the
-        optimizer, the augmentation generator, the step and micro-step, the
+        optimizer, the augmentation and photometric-phase generators, the
+        step and micro-step, the
         EMA shadow of both nets' parameters by name (``ema``, or None), a
         partial gradient accumulation (``acc``, or None), the epoch and the
         best validation metric; the pose net's ``state_dict`` beside it
-        under the reference's name; each copied to its best file when
-        ``is_best``. ``restore`` reads it all back."""
-        path = save_path / CHECKPOINT_NAME
-        torch.save({"epoch": epoch, "step": self.step, "best": best,
-                    "state_dict": self.model.state_dict(),
-                    "optimizer": self.optimizer.state_dict(),
-                    "generator": self.generator.get_state(),
-                    **self.update.state_dict()}, path)
-        if is_best:
-            shutil.copyfile(path, save_path / BEST_NAME)
+        under the reference's name; each linked to its best file when
+        ``is_best`` (``_save_linked``). ``restore`` reads it all back."""
+        _save_linked(
+            {"epoch": epoch, "step": self.step, "best": best,
+             "state_dict": self.model.state_dict(),
+             "optimizer": self.optimizer.state_dict(),
+             "generator": self.generator.get_state(),
+             "photo_generator": self.photo_generator.get_state(),
+             **self.update.state_dict()},
+            save_path / CHECKPOINT_NAME, save_path / BEST_NAME if is_best else None)
         if self.selfsup:
-            pose_path = save_path / POSE_CHECKPOINT_NAME
-            torch.save({"epoch": epoch, "state_dict": self.pose_model.state_dict()},
-                       pose_path)
-            if is_best:
-                shutil.copyfile(pose_path, save_path / POSE_BEST_NAME)
+            _save_linked({"epoch": epoch, "state_dict": self.pose_model.state_dict()},
+                         save_path / POSE_CHECKPOINT_NAME,
+                         save_path / POSE_BEST_NAME if is_best else None)
 
     def restore(self, save_path: Path) -> dict | None:
         """Load the run's last checkpoint (``save_checkpoint``) into the
@@ -371,6 +495,8 @@ class Trainer:
                 load_torch_state_dict(save_path / POSE_CHECKPOINT_NAME), strict=True)
         self.optimizer.load_state_dict(blob["optimizer"])
         self.generator.set_state(blob["generator"])
+        if "photo_generator" in blob:
+            self.photo_generator.set_state(blob["photo_generator"])
         self.update.load_state_dict(blob)
         return {"epoch": int(blob["epoch"]), "best": float(blob["best"])}
 
@@ -393,6 +519,8 @@ class Trainer:
         logger = TermLogger(cfg.epochs, len(train_loader), len(val_loader))
         csv = CsvLogger(save_path, append=start_epoch > 0)
         jsonl = JsonlLogger(save_path / "metrics.jsonl")
+        if self.tb is None:
+            self.tb = make_tensorboard_writer(save_path)
         # best-model metric: abs_rel with GT, else the photometric val loss
         sel_key = "abs_rel" if self.val_with_gt else "photo_loss"
         try:
@@ -405,6 +533,10 @@ class Trainer:
                 jsonl.log(event="epoch", epoch=epoch, train_loss=train_loss,
                           lr=self.lr_schedule(self.step), **errors)
                 csv.write_summary([train_loss, errors[sel_key]])
+                self.tb.add_scalar("train/lr", self.lr_schedule(self.step), epoch)
+                self.tb.add_scalar("train/loss", train_loss, epoch)
+                for name, v in errors.items():
+                    self.tb.add_scalar(f"val/{name}", v, epoch)
                 is_best = errors[sel_key] < best
                 best = min(best, errors[sel_key])
                 self.save_checkpoint(save_path, epoch, is_best, best)
@@ -412,4 +544,5 @@ class Trainer:
                     json.dumps({"epoch": epoch, "best": best}))
         finally:
             jsonl.close()
+            self.tb.close()
         return best

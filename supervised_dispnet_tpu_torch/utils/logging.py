@@ -1,7 +1,7 @@
-"""Console + CSV/JSONL logging, the port's copy of
-``supervised_dispnet_tpu/utils/logging.py`` (without tensorboard). The log
-file names match the reference: ``progress_log_summary.csv``,
-``progress_log_full.csv``, ``metrics.jsonl``."""
+"""Console, CSV/JSONL and tensorboard logging, the port's copy of
+``supervised_dispnet_tpu/utils/logging.py``. The log file names match the
+reference: ``progress_log_summary.csv``, ``progress_log_full.csv``,
+``metrics.jsonl``."""
 
 from __future__ import annotations
 
@@ -106,3 +106,27 @@ class JsonlLogger:
 
     def close(self):
         self._f.close()
+
+
+class NoopWriter:
+    """The writer where tensorboardX does not import: every call does
+    nothing."""
+
+    def add_scalar(self, *args, **kwargs):
+        pass
+
+    def add_image(self, *args, **kwargs):
+        pass
+
+    def close(self):
+        pass
+
+
+def make_tensorboard_writer(save_path: str | Path):
+    """tensorboardX's ``SummaryWriter`` on ``save_path`` where it imports,
+    else a ``NoopWriter``."""
+    try:
+        from tensorboardX import SummaryWriter
+    except ImportError:
+        return NoopWriter()
+    return SummaryWriter(str(save_path))

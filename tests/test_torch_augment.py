@@ -14,6 +14,9 @@ from supervised_dispnet_tpu.data.augment import augment_batch as jax_augment_bat
 from supervised_dispnet_tpu.data.augment import normalize_images as jax_normalize
 from supervised_dispnet_tpu_torch.data.augment import (
     AugmentConfig, augment_batch, draw_augment, normalize_images)
+from tests.torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 B, S, H, W = 3, 2, 24, 40
 

@@ -13,6 +13,9 @@ from supervised_dispnet_tpu.losses import supervised as jax_sup
 from supervised_dispnet_tpu.ops.pallas import berhu_loss_pallas
 from supervised_dispnet_tpu_torch.losses import supervised as sup
 from supervised_dispnet_tpu_torch.ops.cuda import losses as kl
+from tests.torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 JAX_BERHU = {
     "xla": jax_sup.berhu_loss,

@@ -16,6 +16,9 @@ from supervised_dispnet_tpu.losses import classification as jax_cls
 from supervised_dispnet_tpu.ops.pallas import depth_classification_loss_pallas
 from supervised_dispnet_tpu_torch.losses import classification as cls
 from supervised_dispnet_tpu_torch.ops.cuda import classification as kc
+from tests.torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 SPACINGS = ["linear", "log", "inverse"]
 JAX_CE = {

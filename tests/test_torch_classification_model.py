@@ -17,6 +17,9 @@ from supervised_dispnet_tpu.utils.convert_models import (
 from supervised_dispnet_tpu_torch.models import DispNetS, DispResNet, get_disp_net
 from supervised_dispnet_tpu_torch.utils.convert import dispresnet_from_jax
 from tests.torch_ref import TorchDispResNet
+from tests.torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 DEPTH, K, B, H, W = 18, 16, 2, 64, 96
 CLS = {"head": "classification", "num_bins": K}

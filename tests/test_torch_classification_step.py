@@ -8,6 +8,7 @@ across with ``dispresnet_from_jax``, the same uint8 images and fp16 depth.
 Then the validation step, and a two-step ``--loss classification`` CLI run."""
 
 import json
+import shutil
 from pathlib import Path
 
 import jax
@@ -35,6 +36,9 @@ from supervised_dispnet_tpu_torch.training.train_step import (
 from supervised_dispnet_tpu_torch.training.trainer import (
     BEST_NAME, CHECKPOINT_NAME, TrainerConfig, build_optimizer)
 from supervised_dispnet_tpu_torch.utils.convert import dispresnet_from_jax
+from tests.torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 DEPTH, K, B, H, W = 18, 16, 2, 64, 96
 LR = 1e-3
@@ -191,6 +195,7 @@ def test_cli_trains_classification_two_steps_on_the_cpu(tmp_path, capsys):
                           strict=True)
     for k, v in trainer.model.state_dict().items():
         assert torch.equal(fresh.state_dict()[k], v), k
+    shutil.rmtree(tmp_path / "ck")  # checked: the disk is shared by the whole suite
 
     disp = trainer.predict(np.random.default_rng(1).uniform(size=(2, H, W, 3)))
     assert disp.shape == (2, H, W)

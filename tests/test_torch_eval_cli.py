@@ -25,6 +25,9 @@ from supervised_dispnet_tpu_torch.cli import run_inference, test_disp
 from supervised_dispnet_tpu_torch.kitti_eval.synthetic import DATE, write_kitti_raw
 from supervised_dispnet_tpu_torch.models import get_disp_net
 from supervised_dispnet_tpu_torch.utils.image_io import read_png
+from tests.torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 SIZE = ["--img-height", "32", "--img-width", "104"]
 METRICS = ("abs_rel", "sq_rel", "rmse", "rmse_log", "a1", "a2", "a3")

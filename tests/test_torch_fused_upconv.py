@@ -29,6 +29,9 @@ from supervised_dispnet_tpu_torch.models import DispResNet, get_disp_net
 from supervised_dispnet_tpu_torch.ops.fused_upconv import upconv2x_fused
 from supervised_dispnet_tpu_torch.ops.resize import interpolate_bilinear
 from supervised_dispnet_tpu_torch.utils.convert import dispresnet_from_jax
+from tests.torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 HP = jax.lax.Precision.HIGHEST
 

@@ -8,6 +8,9 @@ import torch
 
 from supervised_dispnet_tpu.losses.metrics import compute_errors as jax_compute_errors
 from supervised_dispnet_tpu_torch.losses.metrics import compute_errors
+from tests.torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 KEYS = {"abs_diff", "abs_rel", "sq_rel", "rmse", "rmse_log", "a1", "a2", "a3"}
 

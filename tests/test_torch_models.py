@@ -23,6 +23,9 @@ from supervised_dispnet_tpu_torch.ops.resize import downsample2x_avg, resize_bil
 from supervised_dispnet_tpu_torch.utils.convert import (
     dispnet_from_jax, dispresnet_from_jax, posexpnet_from_jax)
 from tests.torch_ref import TorchDispNetS, TorchDispResNet, TorchPoseExpNet
+from tests.torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 
 def _randomize(tree, rng, positive=False):

@@ -26,6 +26,9 @@ from supervised_dispnet_tpu_torch.kitti_eval import pose_evaluation_utils as pe
 from supervised_dispnet_tpu_torch.kitti_eval.synthetic import _euler_mat, write_kitti_odometry
 from supervised_dispnet_tpu_torch.models import DispNetS, PoseExpNet
 from tests.test_torch_port import _packed_split
+from tests.torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 SIZE = ["--img-height", "32", "--img-width", "104"]
 

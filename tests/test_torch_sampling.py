@@ -19,6 +19,9 @@ from supervised_dispnet_tpu.ops.sampling import grid_sample as jax_grid_sample
 from supervised_dispnet_tpu_torch.ops import warp as port_warp
 from supervised_dispnet_tpu_torch.ops.cuda import warp as kw
 from supervised_dispnet_tpu_torch.ops.sampling import bilinear_sample, grid_sample
+from tests.torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 # (B, H, W, C, Ho, Wo, spread): spread > 1 puts many coordinates well out of
 # bounds, some by several image widths

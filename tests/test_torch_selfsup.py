@@ -16,6 +16,9 @@ import torch
 
 from supervised_dispnet_tpu.losses import selfsup as js
 from supervised_dispnet_tpu_torch.losses import selfsup as ts
+from tests.torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 B, H, W, R = 2, 32, 64, 2
 
@@ -116,13 +119,17 @@ def test_scale_intrinsics_matches_jax():
                js._scale_intrinsics(jnp.asarray(K), f), rtol=1e-7)
 
 
-@pytest.mark.parametrize("kw", [{"half_res": True}, {"remat": True, "batch_refs": True},
-                                {"batch_refs": True}, {"stochastic_stride": 2}])
+@pytest.mark.parametrize("kw", [{"half_res_photo": True},
+                                {"remat_photo": True, "batch_refs": True},
+                                {"batch_refs": True}, {"stochastic_photo": 2}])
 def test_unported_photometric_arms_raise(kw):
-    """The arms still to port raise, also beside the ported remat arm
-    (``test_torch_train_options.py`` holds that one)."""
-    tgt, refs, K, depths, masks, pose = (torch.from_numpy(a) if isinstance(a, np.ndarray)
-                                         else [torch.from_numpy(x) for x in a]
-                                         for a in _inputs())
+    """Every photometric arm is ported (``test_torch_photometric_arms.py``
+    holds them); what the self-supervised step still refuses, beside each
+    of them, is QAT (``fake_quant``)."""
+    from supervised_dispnet_tpu_torch.models import DispNetS, PoseExpNet
+    from supervised_dispnet_tpu_torch.training.train_step import make_selfsup_train_step
+
+    disp, pose = DispNetS(), PoseExpNet()
+    opt = torch.optim.Adam([*disp.parameters(), *pose.parameters()])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ts.photometric_reconstruction_loss(tgt, refs, K, depths, masks, pose, **kw)
+        make_selfsup_train_step(disp, pose, opt, fake_quant=True, **kw)

@@ -31,6 +31,9 @@ from supervised_dispnet_tpu_torch.training.train_step import (
     make_selfsup_eval_step, make_selfsup_train_step)
 from supervised_dispnet_tpu_torch.training.trainer import TrainerConfig, build_optimizer
 from supervised_dispnet_tpu_torch.utils.convert import dispnet_from_jax, posexpnet_from_jax
+from tests.torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 B, H, W, R = 2, 32, 64, 2
 LR = 1e-3

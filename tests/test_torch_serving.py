@@ -33,6 +33,9 @@ from supervised_dispnet_tpu_torch.models import DispNetS, get_disp_net
 from supervised_dispnet_tpu_torch.serving import DepthService, ServingConfig, pick_bucket
 from supervised_dispnet_tpu_torch.utils.convert import dispnet_from_jax
 from supervised_dispnet_tpu_torch.utils.image_io import write_png
+from tests.torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 H, W = 32, 64
 TIMEOUT = 60.0

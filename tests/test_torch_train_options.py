@@ -74,6 +74,9 @@ from supervised_dispnet_tpu_torch.utils.convert import (
     dispresnet_from_jax, posexpnet_from_jax)
 from tests.test_torch_augment import _inputs as aug_inputs
 from tests.test_torch_augment import jax_draws
+from tests.torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 B, H, W = 2, 32, 64
 BF16 = torch.bfloat16

@@ -24,9 +24,12 @@ from supervised_dispnet_tpu_torch.models import DispNetS, DispResNet
 from supervised_dispnet_tpu_torch.models.resnet import ResNetEncoder
 from supervised_dispnet_tpu_torch.training.train_step import make_supervised_train_step
 from supervised_dispnet_tpu_torch.training.trainer import (
-    Trainer, TrainerConfig, build_optimizer)
+    BEST_NAME, CHECKPOINT_NAME, Trainer, TrainerConfig, build_optimizer)
 from supervised_dispnet_tpu_torch.utils.logging import TermLogger
 from supervised_dispnet_tpu_torch.utils.profiling import StepTimer, steady_state_images_per_sec
+from tests.torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 B, H, W = 2, 32, 64
 NO_AUG = AugmentConfig(flip=False, scale_crop=False, color_jitter=False)
@@ -140,6 +143,30 @@ def test_a_checkpoint_without_ema_reseeds_the_shadow(tmp_path):
     assert ema.restore(tmp_path) == {"epoch": 0, "best": float("inf")}
     for e, p in zip(ema.update.ema, plain.model.parameters()):
         assert torch.equal(e, p.detach())
+
+
+def test_the_best_checkpoint_is_a_link_that_later_saves_leave_alone(tmp_path):
+    """``save_checkpoint`` writes through a temporary name and hard-links the
+    best file to the checkpoint (one copy of the bytes on disk); a later,
+    worse epoch's save leaves the best file's bytes as they were; ``restore``
+    brings back the photometric phases' generator too."""
+    t = _trainer()
+    t.photo_generator.manual_seed(5)
+    torch.randint(0, 2, (3,), generator=t.photo_generator)
+    t.save_checkpoint(tmp_path, 0, True)
+    ckpt, best = tmp_path / CHECKPOINT_NAME, tmp_path / BEST_NAME
+    assert ckpt.stat().st_ino == best.stat().st_ino and ckpt.stat().st_nlink == 2
+    assert sorted(f.name for f in tmp_path.iterdir()) == sorted([CHECKPOINT_NAME, BEST_NAME])
+    saved = best.read_bytes()
+    with torch.no_grad():
+        next(t.model.parameters()).add_(1.0)
+    t.save_checkpoint(tmp_path, 1, False)
+    assert best.read_bytes() == saved and ckpt.stat().st_ino != best.stat().st_ino
+    assert torch.load(best, weights_only=False)["epoch"] == 0
+    assert torch.load(ckpt, weights_only=False)["epoch"] == 1
+    fresh = _trainer()
+    assert fresh.restore(tmp_path)["epoch"] == 1
+    assert torch.equal(fresh.photo_generator.get_state(), t.photo_generator.get_state())
 
 
 def test_validation_and_predict_use_the_shadow(tmp_path):

@@ -27,6 +27,9 @@ from supervised_dispnet_tpu_torch.training.train_step import (
     make_eval_step, make_supervised_train_step)
 from supervised_dispnet_tpu_torch.training.trainer import TrainerConfig, build_optimizer
 from supervised_dispnet_tpu_torch.utils.convert import dispresnet_from_jax
+from tests.torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 DEPTH, B, H, W = 18, 2, 64, 96
 LR = 1e-3

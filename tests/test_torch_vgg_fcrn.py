@@ -45,6 +45,9 @@ from supervised_dispnet_tpu_torch.utils.convert import (
     disp_vgg_bn_from_jax, fcrn_from_jax, j2t_conv)
 from tests.torch_ref import TorchUpProj
 from tests.test_torch_port import _packed_split
+from tests.torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 B, H, W = 2, 64, 96
 

@@ -15,6 +15,9 @@ import torch
 
 from supervised_dispnet_tpu.ops import warp as jw
 from supervised_dispnet_tpu_torch.ops import warp as tw
+from tests.torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 B, H, W = 2, 32, 64
 

@@ -22,6 +22,9 @@ from supervised_dispnet_tpu.ops.pallas.warp import bilinear_sample_pallas
 from supervised_dispnet_tpu.ops.sampling import bilinear_sample as jax_sample
 from supervised_dispnet_tpu_torch.ops import warp as port_warp
 from supervised_dispnet_tpu_torch.ops.cuda import warp as kw
+from tests.torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 CSRC = Path(kw.__file__).resolve().parents[2] / "csrc" / "warp.cu"
 
