@@ -7,7 +7,8 @@ CUDA card. Run from the repository root with no arguments:
 Phases; any failure exits non-zero:
   1. print the card's name and power limit; build every CUDA kernel from
      ``supervised_dispnet_tpu_torch/csrc`` (one ``nvcc`` per source, all
-     started together; timed);
+     started together; timed) and the host image codec
+     (``csrc/host/image_codec.cpp``, ``g++``);
   2. kernels, each against its plain PyTorch version on the card:
      - BerHu, forward and backward: one problem at the main-path shape,
        ragged shapes, an all-masked-out case and an all-quadratic case; then
@@ -126,6 +127,17 @@ Phases; any failure exits non-zero:
        same batches bit for bit, the same losses), ``--steps-per-dispatch
        4`` against 4 single steps (parameters, the logged mean, one
        readback), DispResNet-50 BerHu with ``--loader device``;
+     - the reference's data path: a synthetic KITTI-raw tree (3 drives x 24
+       frames at 375x1242, velodyne, oxts, a static-frames list) and an
+       odometry sequence dumped by ``data.prepare_train_data`` in a
+       subprocess with cv2, PIL, imageio, joblib and JAX blocked; configs 3
+       and 5 trained 5 steps each through ``cli.train.main`` from the JPEG
+       dump tree (BerHu grouped 1 + 1 launches a step, warp grouped 1 + 1);
+       the dump packed by ``data.packed``'s CLI, the folder and packed
+       loaders' first batches bit for bit and config 3's first loss from
+       each within rel 1e-6; the host's native and plain PNG decode, JPEG
+       decode and encode, the folder loader's frames a second at ``-j 1``
+       and ``-j 4`` beside the step's; folder inference over the JPEGs;
      - ``ops.warp.inverse_warp`` with its default ``diff_img=True`` and a
        backward into the image, depth and pose (the image+coordinate
        backward's path), against the plain sampler on the card;
@@ -144,7 +156,7 @@ Phases; any failure exits non-zero:
   6. a JSON line of the slice and cross-check numbers, a JSON line of the
      eval and inference numbers, a JSON line of the pose, serving and
      network numbers, a JSON line of the training options' numbers, a JSON
-     line of the photometric arms', loaders' and convergence numbers, a
+     line of the photometric arms', loaders', ETL and convergence numbers, a
      JSON line of kernel numbers, the card line, and as the last line
      ``{"ok": true, "device": {...}}``.
 
@@ -155,6 +167,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import dataclasses
 import io
 import json
 import math
@@ -1723,18 +1736,19 @@ def _max_rel(a: list, b: list) -> float:
 
 
 def host_pipeline_s(tree: Path) -> dict:
-    """The eval producer's host work for the tree, part by part: PNG decode,
-    the velodyne GT projection and the area resize to the network input."""
+    """The eval producer's host work for the tree, part by part: PNG decode
+    (``read_image``, the native unfilter), the velodyne GT projection and the
+    area resize to the network input."""
     from supervised_dispnet_tpu_torch.data.image_resize import resize_area
     from supervised_dispnet_tpu_torch.kitti_eval.depth_evaluation_utils import (
         generate_depth_map)
-    from supervised_dispnet_tpu_torch.utils.image_io import read_png
+    from supervised_dispnet_tpu_torch.utils.image_io import read_image
 
     parts = {"decode_s": 0.0, "gt_s": 0.0, "resize_s": 0.0}
     for rel in tree.read_text().split():
         img_path = tree.parent / rel
         t0 = time.perf_counter()
-        img = read_png(img_path)
+        img = read_image(img_path)
         t1 = time.perf_counter()
         drive = img_path.parents[2]
         generate_depth_map(drive.parent, drive / "velodyne_points" / "data" /
@@ -2894,6 +2908,43 @@ def arm_cross_check(torch, arm: str) -> dict:
             "rel_l2_max": rels[worst], "rel_l2_worst": worst}
 
 
+def _warped_image_agrees(torch, card_img, cpu_img, seen: dict, padding_mode: str) -> dict:
+    """Holds the card's training-output warped image (C, H, W) against the
+    CPU port's on the same weights and input. The image is the bilinear
+    sampler at coordinates that each device's geometry rounds its own way
+    (cuBLAS and the CPU sum the 3x3 products in different orders; one
+    float32 ulp of a coordinate near 400 px is 3.05e-5 px), and the frames
+    are uniform noise, whose neighbours differ by up to 1, so a fixed
+    absolute limit on the images would measure rounding. ``seen`` holds each
+    device's (img, x, y) as handed to ``ops.warp.sample``. Three checks:
+    the card's image against the plain sampler at the card's own
+    coordinates (rtol 1e-5, atol 1e-6, as ``_group_agrees``); the card's
+    coordinates against the CPU's (1e-3 px); and the two images per pixel
+    within what that coordinate difference allows: bilinear sampling of the
+    zero-padded frame is Lipschitz in x and y with the frame's largest
+    horizontal and vertical neighbour differences, and the clip to [0, 1]
+    keeps the bound, so |card - CPU| <= Lx |dx| + Ly |dy| + 1e-6."""
+    from supervised_dispnet_tpu_torch.ops.sampling import bilinear_sample
+
+    (img, x, y), (_, x_p, y_p) = seen["cuda"], seen["cpu"]
+    plain = bilinear_sample(img.to(torch.float32), x, y, padding_mode)[0]
+    plain = np.clip(plain.numpy(), 0, 1).transpose(2, 0, 1)
+    kernel_ok = np.allclose(card_img, plain, rtol=1e-5, atol=1e-6)
+    dx, dy = (x - x_p).abs()[0].numpy(), (y - y_p).abs()[0].numpy()
+    frame = np.pad(img[0].to(torch.float32).numpy(), ((1, 1), (1, 1), (0, 0)))
+    lx, ly = (float(np.abs(np.diff(frame, axis=a)).max()) for a in (1, 0))
+    bound = lx * dx + ly * dy + 1e-6
+    diff = np.abs(card_img - cpu_img).max(0)
+    out = {"kernel_vs_plain": float(np.abs(card_img - plain).max()),
+           "coords": float(max(dx.max(), dy.max())), "image": float(diff.max()),
+           "lipschitz": [lx, ly], "bound_used": float((diff / bound).max())}
+    if not kernel_ok or out["coords"] > 1e-3 or out["bound_used"] > 1.0:
+        raise AssertionError(f"-f: warped image card vs CPU {out} (limits: kernel vs plain "
+                             "rtol 1e-5 atol 1e-6, coordinates 1e-3 px, image within "
+                             "Lx |dx| + Ly |dy| + 1e-6 per pixel)")
+    return out
+
+
 def photometric_arms_phase(torch, tmp: Path, card: str) -> dict:
     """Slice 7's arms of the self-supervised step on the card, DispNetS +
     PoseExpNet at 128x416, B=4, fp32: the default, ``--half-res-photo`` and
@@ -2907,8 +2958,10 @@ def photometric_arms_phase(torch, tmp: Path, card: str) -> dict:
     (``_group_agrees``), one step card against CPU, and the step's ms (CUDA
     events over 20 steps) and busy ms. Then ``-f 1`` with a recording
     writer: the four images, one single-problem forward launch for the
-    warped image, which is held against the CPU port's."""
+    warped image, which is held against the CPU port's
+    (``_warped_image_agrees``)."""
     from supervised_dispnet_tpu_torch.cli import train as train_cli
+    from supervised_dispnet_tpu_torch.ops import warp as wp
     from supervised_dispnet_tpu_torch.ops.cuda import warp as kw
     from supervised_dispnet_tpu_torch.training import trainer as trainer_mod
     from supervised_dispnet_tpu_torch.training.train_step import make_selfsup_train_step
@@ -3014,11 +3067,21 @@ def photometric_arms_phase(torch, tmp: Path, card: str) -> dict:
                   copy.deepcopy(trainer.model).cpu(), copy.deepcopy(trainer.pose_model).cpu(),
                   device="cpu")
     cpu.tb = cpu_writer
-    _warp_counts(kw, zero=True)
-    trainer.log_images(item, 1)
-    torch.cuda.synchronize()
-    single = _warp_counts(kw)
-    cpu.log_images(item, 1)
+    seen, real_sample = {}, wp.sample
+
+    def spy(img, x, y, *args, **kwargs):
+        seen[img.device.type] = [t.detach().cpu() for t in (img, x, y)]
+        return real_sample(img, x, y, *args, **kwargs)
+
+    wp.sample = spy  # inverse_warp looks its sampler up at call time
+    try:
+        _warp_counts(kw, zero=True)
+        trainer.log_images(item, 1)
+        torch.cuda.synchronize()
+        single = _warp_counts(kw)
+        cpu.log_images(item, 1)
+    finally:
+        wp.sample = real_sample
     errs = {t: float(np.abs(trainer.tb.images[t] - cpu_writer.images[t]).max()) for t in tags}
     print(f"  -f 1: images {sorted(writer.images)}; one image's warp launches {single}; "
           f"card vs CPU max abs err {errs}", flush=True)
@@ -3027,11 +3090,18 @@ def photometric_arms_phase(torch, tmp: Path, card: str) -> dict:
                              "single-problem forward")
     # the input is uint8 / 255, which the card computes as a product with
     # 1 / 255: within an ulp of the CPU's quotient
-    if errs["train/warped"] > 1e-4 or errs["train/input"] > 1e-6:
-        raise AssertionError(f"-f: card vs CPU images differ: {errs} (limits: warped 1e-4, "
-                             "input 1e-6)")
+    if errs["train/input"] > 1e-6:
+        raise AssertionError(f"-f: card vs CPU input images differ by {errs['train/input']} "
+                             "(limit 1e-6)")
+    warped = _warped_image_agrees(torch, trainer.tb.images["train/warped"],
+                                  cpu_writer.images["train/warped"], seen,
+                                  trainer.cfg.padding_mode)
+    print(f"  -f 1: warped image, kernel vs plain sampler at the card's coordinates "
+          f"{warped['kernel_vs_plain']:.3g}; coordinates card vs CPU {warped['coords']:.3g} "
+          f"px; card vs CPU image {warped['image']:.3g}, at most "
+          f"{warped['bound_used']:.3f} of its per-pixel bound", flush=True)
     out["viz"] = {"launches": launches, "single_image_launches": single,
-                  "card_vs_cpu_max_abs_err": errs}
+                  "card_vs_cpu_max_abs_err": errs, "warped": warped}
     out["seconds"] = time.perf_counter() - t0
     print(f"  photometric arms phase: {out['seconds']:.1f} s", flush=True)
     return out
@@ -3197,6 +3267,253 @@ def device_loader_phase(torch, tmp: Path, card: str) -> dict:
     out["seconds"] = time.perf_counter() - t0
     print(f"  device loader phase: {out['seconds']:.1f} s", flush=True)
     return out
+
+
+ETL_RAW = (375, 1242)  # KITTI raw's frame size
+ETL_DRIVES, ETL_FRAMES, ETL_STATIC = 3, 24, 2
+BLOCKED = ("cv2", "PIL", "imageio", "joblib", "jax", "supervised_dispnet_tpu")
+
+
+def run_blocked(module: str, args: list[str]) -> float:
+    """``python -m module args`` in a subprocess with the image libraries,
+    joblib and JAX blocked in ``sys.modules`` (the card's machine has none
+    of them; this makes sure nothing reaches for them); its wall seconds."""
+    code = (f"import runpy, sys\nfor m in {BLOCKED!r}:\n    sys.modules[m] = None\n"
+            f"sys.argv = [{module!r}] + sys.argv[1:]\n"
+            f"runpy.run_module({module!r}, run_name='__main__')\n")
+    t0 = time.perf_counter()
+    subprocess.run([sys.executable, "-c", code, *args], cwd=REPO, check=True)
+    return time.perf_counter() - t0
+
+
+def _png_unfilter_ms(path: Path, reps: int = 5) -> dict:
+    """A PNG frame's decode by ``read_png`` (zlib + the native unfilter)
+    beside zlib + the plain numpy unfilter, ms each (best of ``reps``)."""
+    import struct
+    import zlib
+
+    from supervised_dispnet_tpu_torch.utils import image_io
+
+    data = path.read_bytes()
+    chunks = list(image_io._chunks(data, path))
+    W, H = struct.unpack(">II", chunks[0][1][:8])
+    idat = b"".join(p for k, p in chunks if k == b"IDAT")
+
+    def best(fn) -> float:
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return min(times)
+
+    def plain():
+        raw = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(H, W * 3 + 1)
+        return image_io._unfilter(raw[:, 1:].reshape(H, W, 3), raw[:, 0], 3)
+
+    if not np.array_equal(plain(), image_io.read_png(path)):
+        raise AssertionError(f"{path}: the native and numpy PNG unfilters disagree")
+    return {"native_ms": best(lambda: image_io.read_png(path)), "plain_ms": best(plain)}
+
+
+def _loader_img_s(dataset, workers: int, epochs: int = 3) -> float:
+    """Frames a second that ``BatchLoader`` hands on over ``epochs`` epochs
+    (the target and its references), decode included."""
+    from supervised_dispnet_tpu_torch.data.loader import BatchLoader
+
+    loader = BatchLoader(dataset, MAIN_SHAPE[0], shuffle=True, num_workers=workers)
+    t0, frames = time.perf_counter(), 0
+    for _ in range(epochs):
+        for batch in loader:
+            frames += batch["tgt"].shape[0] * (1 + batch["ref_imgs"].shape[1])
+    return frames / (time.perf_counter() - t0)
+
+
+def _step_img_s(torch, trainer) -> float:
+    """Images a second of the trainer's step on its first batch (CUDA
+    events over 10 steps after 2 of warm-up)."""
+    batch = _first_batch(trainer)
+    return MAIN_SHAPE[0] / cuda_ms(torch, lambda: trainer.train_step(batch), reps=10,
+                                   warmup=2) * 1e3
+
+
+def etl_phase(torch, tmp: Path, card: str, device: str = "cuda") -> dict:
+    """The reference's data path on the card's machine (slice 8): a
+    synthetic KITTI-raw tree (3 drives x 24 frames at 375x1242, velodyne,
+    oxts, 2 static frames a drive) and an odometry sequence, dumped by
+    ``python -m supervised_dispnet_tpu_torch.data.prepare_train_data``
+    (``--with-depth --with-pose``, 128x416) in a subprocess with cv2, PIL,
+    imageio, joblib and JAX blocked; configs 3 (DispResNet-50 BerHu, ``-j
+    4``) and 5 (DispNetS + PoseExpNet self-supervised) trained 5 steps each
+    through ``cli.train.main`` from the JPEG dump tree (BerHu grouped 1 + 1
+    launches a step, warp grouped 1 + 1); the dump packed by the port's pack
+    CLI, the folder and packed loaders' first train and val batches bit for
+    bit, and config 3's first logged loss from each within rel 1e-6 (the
+    same seed, the same batch); the host's native and plain PNG decode of a
+    375x1242 frame, JPEG decode and encode of a 128x416 frame, the folder
+    loader's frames a second at ``-j 1`` and ``-j 4`` (and the packed
+    loader's) beside the step's images a second; folder inference over the
+    dump's JPEGs on the card."""
+    from supervised_dispnet_tpu_torch.cli import run_inference
+    from supervised_dispnet_tpu_torch.cli import train as train_cli
+    from supervised_dispnet_tpu_torch.data.packed import PackedSequenceDataset, is_packed
+    from supervised_dispnet_tpu_torch.data.sequence_folders import SequenceFolder
+    from supervised_dispnet_tpu_torch.kitti_eval.synthetic import (
+        write_kitti_odometry, write_kitti_raw)
+    from supervised_dispnet_tpu_torch.ops.cuda import losses as kl
+    from supervised_dispnet_tpu_torch.ops.cuda import warp as kw
+    from supervised_dispnet_tpu_torch.utils.image_io import (
+        decode_image, encode_jpeg, read_image)
+
+    B, H, W = MAIN_SHAPE
+    t0 = time.perf_counter()
+    write_kitti_raw(tmp / "raw", seed=21, drives=ETL_DRIVES, frames=ETL_FRAMES,
+                    height=ETL_RAW[0], width=ETL_RAW[1], oxts=True, static_frames=ETL_STATIC)
+    write_kitti_odometry(tmp / "odometry", seed=22, seq="00", frames=ETL_FRAMES,
+                         height=ETL_RAW[0], width=ETL_RAW[1], calib=True)
+    print(f"  etl: synthetic raw tree ({ETL_DRIVES} x {ETL_FRAMES} frames) and odometry "
+          f"sequence in {time.perf_counter() - t0:.2f} s", flush=True)
+
+    dump, odo_dump, packed = tmp / "dump", tmp / "odo_dump", tmp / "packed"
+    etl_s = run_blocked("supervised_dispnet_tpu_torch.data.prepare_train_data", [
+        str(tmp / "raw"), "--dump-root", str(dump), "--with-depth", "--with-pose",
+        "--height", str(H), "--width", str(W), "--static-frames",
+        str(tmp / "raw" / "static_frames.txt"), "--num-threads", "4"])
+    odo_s = run_blocked("supervised_dispnet_tpu_torch.data.prepare_train_data", [
+        str(tmp / "odometry"), "--dataset-format", "odometry", "--dump-root", str(odo_dump),
+        "--with-pose", "--height", str(H), "--width", str(W), "--num-threads", "4"])
+    jpgs = sorted(dump.glob("*/*.jpg"))
+    n_kitti = ETL_DRIVES * (ETL_FRAMES - ETL_STATIC)
+    scenes = sorted(d.name for d in dump.iterdir() if d.is_dir())
+    if (len(jpgs) != n_kitti or len(list(dump.glob("*/*.npy"))) != n_kitti
+            or len(scenes) != ETL_DRIVES or len(list(odo_dump.glob("seq_00/*.jpg"))) != ETL_FRAMES
+            or read_image(jpgs[0]).shape != (H, W, 3)):
+        raise AssertionError(f"etl: {len(jpgs)} frames in {scenes}, odometry "
+                             f"{len(list(odo_dump.glob('seq_00/*.jpg')))}")
+    for scene in scenes:
+        poses = np.loadtxt(dump / scene / "poses.txt")
+        if poses.shape != (ETL_FRAMES - ETL_STATIC, 12) or not np.isfinite(poses).all():
+            raise AssertionError(f"etl: {scene}/poses.txt {poses.shape}")
+    print(f"  etl: prepare_train_data {n_kitti} KITTI frames in {etl_s:.3f} s "
+          f"({etl_s / n_kitti:.4f} s a frame), odometry {ETL_FRAMES} frames in {odo_s:.3f} s "
+          f"({odo_s / ETL_FRAMES:.4f} s a frame), cv2 / PIL / imageio / joblib / JAX blocked",
+          flush=True)
+
+    # configs 3 and 5 from the JPEG dump tree, through the CLI
+    runs = {}
+    for name, argv, counters, per_step in (
+            ("berhu", ["--network", "disp_res_50", "--loss", "berhu", "--with-gt", "-j", "4"],
+             (kl, {"berhu_fwd": "berhu_fwd_launches", "berhu_bwd": "berhu_bwd_launches",
+                   "berhu_fwd_problems": "berhu_fwd_problems"}),
+             {"berhu_fwd": 1, "berhu_bwd": 1, "berhu_fwd_problems": 4}),
+            ("selfsup", ["--network", "dispnet", "--loss", "selfsup", "--sequence-length", "3",
+                         "-p", "1.0", "-m", "0.2", "-s", "0.1", "-j", "4"],
+             (kw, {"warp_fwd": "warp_fwd_launches", "warp_bwd_coords": "warp_bwd_coords_launches",
+                   "warp_fwd_problems": "warp_fwd_problems",
+                   "warp_bwd_coords_problems": "warp_bwd_coords_problems"}),
+             {"warp_fwd": 1, "warp_bwd_coords": 1, "warp_fwd_problems": 8,
+              "warp_bwd_coords_problems": 8})):
+        mod, attrs = counters
+        for attr in attrs.values():
+            setattr(mod, attr, 0)
+        t0 = time.perf_counter()
+        trainer = train_cli.main([str(dump), *argv, "-b", str(B), "--epoch-size", "5",
+                                  "--epochs", "1", "--device", device, "--checkpoints-dir",
+                                  str(tmp / "ckpt"), "--name", f"etl_{name}"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: getattr(mod, a) for k, a in attrs.items()}
+        steps = trainer.step
+        # validation has GT here, so the self-supervised run's validation
+        # runs no warp; neither runs BerHu
+        want = {k: v * steps for k, v in per_step.items()}
+        print(f"  etl: {name} from the JPEG dump, {steps} steps in {wall:.2f} s; launches "
+              f"{launches}", flush=True)
+        if steps != 5 or launches != want or not trainer.val_with_gt:
+            raise AssertionError(f"etl {name}: expected launches {want} over {steps} "
+                                 f"steps (val with GT {trainer.val_with_gt}), got {launches}")
+        losses, _ = _read_run(trainer, steps)
+        runs[name] = {"trainer": trainer, "launches": launches, "losses": losses,
+                      "wall_s": wall}
+
+    # pack the dump with the port's CLI; the folder and packed batches
+    pack_s = run_blocked("supervised_dispnet_tpu_torch.data.packed", [str(dump), str(packed)])
+    if not is_packed(packed):
+        raise AssertionError("etl: the pack CLI wrote no packed root")
+    trainer = runs["berhu"]["trainer"]
+    folder_loaders = trainer.make_loaders()
+    trainer.cfg = dataclasses.replace(trainer.cfg, data=str(packed))
+    packed_loaders = trainer.make_loaders()
+    trainer.cfg = dataclasses.replace(trainer.cfg, data=str(dump))
+    for kind, a, b in zip(("train", "val"), folder_loaders, packed_loaders):
+        fa, fb = iter(a), iter(b)
+        x, y = next(fa), next(fb)
+        fa.close()
+        fb.close()
+        if sorted(x) != sorted(y) or not all(
+                x[k].dtype == y[k].dtype and np.array_equal(x[k], y[k]) for k in x):
+            raise AssertionError(f"etl: the folder and packed loaders' first {kind} "
+                                 "batches differ")
+    packed_run = train_cli.main([str(packed), "--network", "disp_res_50", "--loss", "berhu",
+                                 "--with-gt", "-b", str(B), "--epoch-size", "2", "--epochs",
+                                 "1", "--device", device, "--checkpoints-dir",
+                                 str(tmp / "ckpt"), "--name", "etl_packed"])
+    first = (runs["berhu"]["losses"][0], _read_run(packed_run, 2)[0][0])
+    loss_rel = abs(first[0] - first[1]) / abs(first[1])
+    print(f"  etl: packed in {pack_s:.3f} s; first train and val batches bit-equal; first "
+          f"loss folder {first[0]!r} packed {first[1]!r} (rel {loss_rel:.3g}, limit 1e-6)",
+          flush=True)
+    if loss_rel > 1e-6:
+        raise AssertionError(f"etl: first losses {first}")
+
+    # host costs
+    png = _png_unfilter_ms(sorted((tmp / "raw").glob("*/*/image_02/data/*.png"))[0])
+    frame = read_image(jpgs[0])
+    data = jpgs[0].read_bytes()
+    reps = 50
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        decode_image(data)
+    jpeg_dec = (time.perf_counter() - t0) / reps * 1e3
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        encode_jpeg(frame)
+    jpeg_enc = (time.perf_counter() - t0) / reps * 1e3
+    seq = dict(seed=0, train=True, sequence_length=1, with_depth=True, uint8=True)
+    loader_img_s = {f"folder_j{j}": _loader_img_s(SequenceFolder(dump, **seq), j)
+                    for j in (1, 4)}
+    loader_img_s["packed_j4"] = _loader_img_s(PackedSequenceDataset(packed, **seq), 4)
+    step_img_s = {n: _step_img_s(torch, runs[n]["trainer"]) for n in ("berhu", "selfsup")}
+    host = {"png_375x1242": png, "jpeg_decode_ms_128x416": jpeg_dec,
+            "jpeg_encode_ms_128x416": jpeg_enc, "loader_frames_per_s": loader_img_s,
+            "step_img_s": step_img_s}
+    print(f"  etl host: PNG 375x1242 decode native {png['native_ms']:.3f} ms, plain "
+          f"{png['plain_ms']:.3f} ms; JPEG 128x416 decode {jpeg_dec:.3f} ms, encode "
+          f"{jpeg_enc:.3f} ms; loader frames/s {loader_img_s}; step img/s {step_img_s}, "
+          f"on {card}", flush=True)
+
+    # folder inference over the dump's JPEGs on the card
+    scene = dump / scenes[0]
+    t0 = time.perf_counter()
+    run_inference.main(["--pretrained", str(Path(trainer.cfg.save_path)
+                                            / "dispnet_checkpoint.pth.tar"),
+                        "--network", "disp_res_50", "--dataset-dir", str(scene),
+                        "--output-dir", str(tmp / "infer_jpg"), "--img-height", str(H),
+                        "--img-width", str(W), "--save-npy", "--device", device])
+    infer_s = time.perf_counter() - t0
+    depths = sorted((tmp / "infer_jpg").glob("*_depth.npy"))
+    n_scene = len(list(scene.glob("*.jpg")))
+    if len(depths) != n_scene or not all(
+            np.isfinite(d := np.load(p)).all() and d.shape == (H, W) for p in depths):
+        raise AssertionError(f"etl: inference wrote {len(depths)} depths for {n_scene} JPEGs")
+    print(f"  etl: run_inference over {n_scene} JPEGs in {infer_s:.3f} s", flush=True)
+    return {"etl_s": etl_s, "etl_s_per_frame": etl_s / n_kitti, "frames": n_kitti,
+            "odometry_s_per_frame": odo_s / ETL_FRAMES, "pack_s": pack_s,
+            "launches": {n: r["launches"] for n, r in runs.items()},
+            "losses": {n: r["losses"] for n, r in runs.items()},
+            "train_wall_s": {n: r["wall_s"] for n, r in runs.items()},
+            "first_loss_rel_folder_vs_packed": loss_rel, "host": host,
+            "inference_s": infer_s, "card": card}
 
 
 CONVERGENCE_RUNS = {  # the short form of scripts/torch_convergence_check.py
@@ -3628,6 +3945,13 @@ def main() -> int:
     for name, log in logs.items():
         regs = [ln.strip() for ln in log.splitlines() if "registers" in ln]
         print(f"  {name}: {'; '.join(regs) or 'already built'}", flush=True)
+    from supervised_dispnet_tpu_torch.utils import native
+
+    t0 = time.perf_counter()
+    log = native.build("image_codec")
+    print(f"build: host codec {native.library_path('image_codec').name} with g++ in "
+          f"{time.perf_counter() - t0:.2f} s{': ' + log.strip() if log.strip() else ''}",
+          flush=True)
 
     kernels = {**kernel_phase(torch), **warp_phase(torch), **warp_group_phase(torch),
                **ce_phase(torch)}
@@ -3661,6 +3985,7 @@ def main() -> int:
         opts = options_phase(torch, Path(tmp) / "options", card)
         arms = photometric_arms_phase(torch, Path(tmp) / "arms", card)
         loaders = device_loader_phase(torch, Path(tmp) / "loaders", card)
+        etl = etl_phase(torch, Path(tmp) / "etl", card)
     iw = inverse_warp_phase(torch)
     xc = {**cross_check(torch), **selfsup_cross_check(torch)}
     conv = convergence_phase(torch)
@@ -3686,6 +4011,12 @@ def main() -> int:
         kernels[name]["arm_launches"] = {arm: arms[arm]["launches"][key] for arm in PHOTO_ARMS}
     kernels["warp_fwd"]["training_output_launches"] = arms["viz"]["single_image_launches"][
         "warp_fwd"]
+    # the training runs from the ETL's JPEG dump tree (5 steps each)
+    for name, run, key in (("berhu_fwd_group", "berhu", "berhu_fwd"),
+                           ("berhu_bwd_group", "berhu", "berhu_bwd"),
+                           ("warp_fwd_group", "selfsup", "warp_fwd"),
+                           ("warp_bwd_coords_group", "selfsup", "warp_bwd_coords")):
+        kernels[name]["etl_launches"] = etl["launches"][run][key]
     if not all(e["launches"] > 0 for e in kernels.values()):
         raise AssertionError(f"a kernel was not launched on its path: {launches}")
     print(json.dumps({"slices": {
@@ -3701,7 +4032,8 @@ def main() -> int:
     print(json.dumps({"pose": po, "serving": sv, "networks": nets,
                       "pose_serving_kernel_launches": serve_launches}))
     print(json.dumps({"options": opts}))
-    print(json.dumps({"photometric_arms": arms, "loaders": loaders, "convergence": conv}))
+    print(json.dumps({"photometric_arms": arms, "loaders": loaders, "etl": etl,
+                      "convergence": conv}))
     print(json.dumps({"kernels": list(kernels.values())}))
     print(card)
     print(json.dumps({"ok": True, "device": {

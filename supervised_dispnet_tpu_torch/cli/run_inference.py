@@ -7,9 +7,10 @@ optional ``.npy`` depth dumps.
       --pretrained dispnet_model_best.pth.tar --network disp_res_50 \\
       --dataset-dir frames/ --output-dir out/ --output-depth --save-npy
 
-PNGs are decoded by the port's own codec; other ``--img-exts`` files need
-``imageio``, and without it the CLI raises before the first batch, naming
-them. Runs on the card unless ``--device cpu`` is given.
+PNG and JPEG frames are decoded by the port's own codec
+(``utils/image_io.py::read_image``, chosen by the file's signature); a file
+it does not decode raises ``ValueError`` naming it. Runs on the card unless
+``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -49,31 +50,6 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def image_reader(files: list[Path]):
-    """A function path -> (H, W, 3) uint8 RGB, as ``cv2.imread``'s colour
-    mode gives it (grey replicated, alpha dropped). PNGs go through the
-    port's decoder, other files through ``imageio``; without ``imageio``
-    installed, non-PNG files raise here, before any is read."""
-    from supervised_dispnet_tpu_torch.utils.image_io import as_rgb, read_png
-
-    others = [f for f in files if f.suffix.lower() != ".png"]
-    imread = None
-    if others:
-        try:
-            import imageio.v2 as imageio
-        except ImportError:
-            names = ", ".join(str(f) for f in others[:5])
-            raise RuntimeError(
-                f"{len(others)} files are not PNG and imageio is not installed to "
-                f"decode them: {names}{' ...' if len(others) > 5 else ''}") from None
-        imread = imageio.imread
-
-    def read(f: Path) -> np.ndarray:
-        return as_rgb(read_png(f) if f.suffix.lower() == ".png" else np.asarray(imread(f)))
-
-    return read
-
-
 def main(argv: list[str] | None = None) -> None:
     args = parse_args_or_raise(build_parser(), argv, LATER_FLAGS, LATER_WHERE)
     if not (args.output_disp or args.output_depth or args.save_npy):
@@ -85,6 +61,7 @@ def main(argv: list[str] | None = None) -> None:
     from supervised_dispnet_tpu_torch.data.augment import normalize_images
     from supervised_dispnet_tpu_torch.data.image_resize import resize_area
     from supervised_dispnet_tpu_torch.utils.device import resolve_device, set_fp32_math
+    from supervised_dispnet_tpu_torch.utils.image_io import read_image
     from supervised_dispnet_tpu_torch.utils.viz import save_depth_png
 
     dev = resolve_device(args.device)
@@ -100,10 +77,9 @@ def main(argv: list[str] | None = None) -> None:
     print(f"{len(files)} files to test")
     if not files:
         return
-    read = image_reader(files)
 
     def load(f: Path) -> np.ndarray:
-        img = read(f).astype(np.float32) / 255.0
+        img = read_image(f).astype(np.float32) / 255.0
         return resize_area(img, args.img_height, args.img_width)
 
     B = max(1, args.batch_size)

@@ -61,11 +61,10 @@ def decode(buf: bytes, height: int, width: int) -> np.ndarray:
     if not is_png(buf):
         raise ValueError("only PNG images are decoded (8-bit grey, RGB or RGBA)")
     img = as_rgb(decode_png(buf, "request body"))
-    try:
-        return resize_area_uint8(img, height, width)
-    except NotImplementedError as e:  # the area upscale is not ported
+    if img.shape[0] < height or img.shape[1] < width:
         raise ValueError(f"image {img.shape[:2]} is smaller than the network input "
-                         f"({height}, {width}): {e}") from None
+                         f"({height}, {width})")
+    return resize_area_uint8(img, height, width)
 
 
 def make_server(argv: list[str] | None = None):

@@ -107,7 +107,7 @@ def main(argv: list[str] | None = None) -> dict[str, float]:
     from supervised_dispnet_tpu_torch.kitti_eval.pose_evaluation_utils import (
         evaluate_pose_snippets, read_odometry_poses, snippet_from_poses)
     from supervised_dispnet_tpu_torch.utils.device import resolve_device, set_fp32_math
-    from supervised_dispnet_tpu_torch.utils.image_io import as_rgb, read_png
+    from supervised_dispnet_tpu_torch.utils.image_io import read_image
 
     dev = resolve_device(args.device)
     set_fp32_math()
@@ -130,7 +130,7 @@ def main(argv: list[str] | None = None) -> dict[str, float]:
         frames = sorted((Path(args.dataset_dir) / "sequences" / seq / "image_2").glob("*.png"))
         gt_poses = read_odometry_poses(Path(args.dataset_dir) / "poses" / f"{seq}.txt")
         n = min(len(frames), len(gt_poses))
-        cache = [resize_area_uint8(as_rgb(read_png(frames[i])), args.img_height,
+        cache = [resize_area_uint8(read_image(frames[i]), args.img_height,
                                    args.img_width) for i in range(n)]
         centers = list(range(demi, n - demi))
         for c0 in range(0, len(centers), B):

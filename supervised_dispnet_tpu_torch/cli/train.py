@@ -16,7 +16,9 @@ supervised, depth-as-classification and self-supervised paths
       --network dispnet --loss selfsup --stochastic-photo 2 -f 100 \\
       --loader device --steps-per-dispatch 4
 
-Reads packed datasets (``data/packed.py``). Runs on the card unless
+Reads a packed dataset root (``data/packed.py``) or a dump tree of JPEG
+frames (``data/prepare_train_data.py``; decoded on the ``-j`` host threads).
+Runs on the card unless
 ``--device cpu`` is given. A JAX flag whose feature is not ported yet raises
 ``NotImplementedError``; it is never ignored.
 """
@@ -39,7 +41,8 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         description="Supervised and self-supervised depth training (PyTorch port, CUDA)",
         formatter_class=argparse.ArgumentDefaultsHelpFormatter)
-    p.add_argument("data", help="packed dataset root (data/packed.py layout)")
+    p.add_argument("data", help="packed dataset root (data/packed.py layout) or a "
+                                "dump tree (data/prepare_train_data.py layout)")
     p.add_argument("--network", default="dispnet",
                    choices=["dispnet", "disp_res", "disp_res_18", "disp_res_50",
                             "disp_vgg_bn", "fcrn"],
@@ -140,10 +143,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--loader", default="threads", choices=["threads", "grain", "device"],
                    help="'threads' gathers batches on the host; 'device' keeps the "
                         "packed train split on the card and gathers each batch "
-                        "there; 'grain' is the JAX package's and is not ported")
+                        "there (a packed root only); 'grain' is the JAX package's "
+                        "and is not ported")
     p.add_argument("-j", "--workers", type=int, default=4,
-                   help="host threads gathering batches (the same batches for any "
-                        "count)")
+                   help="host threads gathering (a dump tree: decoding) batches "
+                        "(the same batches for any count)")
     p.add_argument("--steps-per-dispatch", type=int, default=1,
                    help="--loader device only: run this many train steps from one "
                         "block of index batches, their metrics read back once "
@@ -151,9 +155,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--max-depth", type=float, default=80.0)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--img-height", type=int, default=128,
-                   help="JPEG dump trees only: a packed split keeps its own size")
+                   help="accepted for the JAX CLI's spelling: batches keep the "
+                        "dataset's frame size")
     p.add_argument("--img-width", type=int, default=416,
-                   help="JPEG dump trees only: a packed split keeps its own size")
+                   help="accepted for the JAX CLI's spelling: batches keep the "
+                        "dataset's frame size")
     p.add_argument("--use-pallas-losses", action="store_true",
                    help="accepted for flag compatibility: BerHu and the "
                         "classification CE on the card always run the CUDA "

@@ -1,13 +1,17 @@
-"""The eval pipeline's image resizes on the host, in numpy: what
-``cv2.resize`` computes for float32 images with ``INTER_AREA`` (a downscale)
-and ``INTER_LINEAR``, without ``cv2``, which the port does not depend on.
+"""The port's image resizes on the host, in numpy: what ``cv2.resize``
+computes with ``INTER_AREA`` and ``INTER_LINEAR``, without ``cv2``, which the
+port does not depend on.
 
 Each resize is separable: a (target x source) weight matrix per axis, built
 as OpenCV builds its tables (its float32 weights, its 1e-3 cut-offs of
 slivers at an area cell's edges), applied as two matrix products. At a
 non-integer ratio such as KITTI's 375x1242 -> 128x416, ``INTER_AREA`` weights
 each source pixel by its fractional overlap with the target cell, which
-``F.interpolate(mode="area")`` (whole-pixel bins) does not.
+``F.interpolate(mode="area")`` (whole-pixel bins) does not. When either
+axis grows, OpenCV's ``INTER_AREA`` is no area mean: both axes take a
+two-tap table of its own (``area_linear_table``). ``resize_area_uint8``
+follows OpenCV's uint8 arithmetic step by step (its summation order, its
+rounding, its 11-bit fixed point), so its frames equal cv2's bit for bit.
 """
 
 from __future__ import annotations
@@ -17,13 +21,39 @@ import math
 import numpy as np
 
 
+def area_linear_table(src: int, dst: int) -> tuple[np.ndarray, np.ndarray]:
+    """(source index, float32 fraction) of each target pixel in the two-tap
+    table that ``cv2.resize`` builds for ``INTER_AREA`` when a scale is below
+    one (an upscale on either axis): source ``floor(d * src / dst)``, fraction
+    ``(d + 1) - (s + 1) * dst / src`` wrapped to [0, 1), both clamped at the
+    last source pixel."""
+    scale, inv = src / dst, dst / src
+    d = np.arange(dst)
+    sx = np.floor(d * scale).astype(np.int64)
+    fx = ((d + 1) - (sx + 1) * inv).astype(np.float32)
+    fx = np.where(fx <= 0, np.float32(0), fx - np.floor(fx)).astype(np.float32)
+    edge = sx >= src - 1
+    fx[edge] = 0.0
+    sx[edge] = src - 1
+    return sx, fx
+
+
+def area_linear_weights(src: int, dst: int) -> np.ndarray:
+    """``area_linear_table`` as a (dst, src) float32 weight matrix."""
+    sx, fx = area_linear_table(src, dst)
+    w = np.zeros((dst, src), np.float32)
+    rows = np.arange(dst)
+    w[rows, sx] += np.float32(1.0) - fx
+    w[rows, np.minimum(sx + 1, src - 1)] += fx
+    return w
+
+
 def area_weights(src: int, dst: int) -> np.ndarray:
-    """(dst, src) float32 ``INTER_AREA`` weights of a downscale, as OpenCV's
-    ``computeResizeAreaTab`` makes them."""
+    """(dst, src) float32 ``INTER_AREA`` weights of a downscale (dst <= src),
+    as OpenCV's ``computeResizeAreaTab`` makes them."""
     if dst > src:
-        raise NotImplementedError(
-            f"area upscale ({src} -> {dst}) is not ported: cv2.INTER_AREA "
-            "switches to another algorithm there")
+        raise ValueError(f"area_weights is a downscale's table ({src} -> {dst}); "
+                         "an upscale takes area_linear_weights")
     scale = 1.0 / (dst / src)  # OpenCV's 1 / inv_scale
     w = np.zeros((dst, src), np.float32)
     for d in range(dst):
@@ -72,14 +102,21 @@ def _check(img: np.ndarray) -> np.ndarray:
     return img
 
 
+def _area_tables(H: int, W: int, h: int, w: int):
+    """OpenCV's ``INTER_AREA`` weights of both axes: area means when neither
+    axis grows, else the two-tap tables on both axes."""
+    if h <= H and w <= W:
+        return area_weights(H, h), area_weights(W, w)
+    return area_linear_weights(H, h), area_linear_weights(W, w)
+
+
 def resize_area(img: np.ndarray, h: int, w: int) -> np.ndarray:
     """``cv2.resize(img, (w, h), interpolation=cv2.INTER_AREA)`` of float32
-    (H, W), (H, W, C) or (B, H, W, C) with h <= H and w <= W; an upscale
-    raises ``NotImplementedError``."""
+    (H, W), (H, W, C) or (B, H, W, C), down or up."""
     img = _check(img)
     grey = img.ndim == 2
     x = img[..., None] if grey else img
-    out = _resize(x, area_weights(x.shape[-3], h), area_weights(x.shape[-2], w))
+    out = _resize(x, *_area_tables(x.shape[-3], x.shape[-2], h, w))
     return out[..., 0] if grey else out
 
 
@@ -93,13 +130,80 @@ def resize_linear(img: np.ndarray, h: int, w: int) -> np.ndarray:
     return out[..., 0] if grey else out
 
 
-def resize_area_uint8(img: np.ndarray, h: int, w: int) -> np.ndarray:
-    """``cv2.resize`` of a uint8 image with ``INTER_AREA`` (a downscale): the
-    float32 area means rounded to the nearest level, ties to even, as cv2
-    rounds them at a non-integer ratio. At some integer ratios cv2 takes a
-    fast path that rounds ties up, so a pixel there may differ by one level."""
-    img = np.asarray(img)
-    if img.dtype != np.uint8:
-        raise ValueError(f"resize_area_uint8 takes uint8, got {img.dtype}")
-    out = resize_area(img.astype(np.float32), h, w)
+def _area_linear_uint8(img: np.ndarray, h: int, w: int) -> np.ndarray:
+    """The two-tap ``INTER_AREA`` tables on (H, W, C) uint8 in OpenCV's fixed
+    point (``resizeGeneric_`` with ``HResizeLinear`` / ``VResizeLinear``):
+    11-bit weights, rows summed in int, then
+    ``((b0 * (r0 >> 4)) >> 16) + ((b1 * (r1 >> 4)) >> 16) + 2) >> 2``."""
+    H, W = img.shape[:2]
+    sy, fy = area_linear_table(H, h)
+    sx, fx = area_linear_table(W, w)
+
+    def fixed(f):  # OpenCV's saturate_cast<short>(weight * 2048)
+        return (np.rint((np.float32(1.0) - f) * np.float32(2048)).astype(np.int64),
+                np.rint(f * np.float32(2048)).astype(np.int64))
+
+    a0, a1 = fixed(fx)
+    b0, b1 = fixed(fy)
+    x = img.astype(np.int64)
+    rows = x[:, sx] * a0[:, None] + x[:, np.minimum(sx + 1, W - 1)] * a1[:, None]
+    r0, r1 = rows[sy] >> 4, rows[np.minimum(sy + 1, H - 1)] >> 4
+    out = (((b0[:, None, None] * r0) >> 16) + ((b1[:, None, None] * r1) >> 16) + 2) >> 2
+    return out.astype(np.uint8)
+
+
+def _area_taps(src: int, dst: int) -> tuple[np.ndarray, np.ndarray]:
+    """``area_weights`` as OpenCV's tap list: (dst, T) source indices in
+    increasing order and their float32 weights, padded with weight 0."""
+    wm = area_weights(src, dst)
+    nz = [np.nonzero(r)[0] for r in wm]
+    idx = np.zeros((dst, max(len(n) for n in nz)), np.int64)
+    alpha = np.zeros(idx.shape, np.float32)
+    for d, n in enumerate(nz):
+        idx[d, :len(n)] = n
+        alpha[d, :len(n)] = wm[d, n]
+    return idx, alpha
+
+
+def _area_mean_uint8(img: np.ndarray, h: int, w: int) -> np.ndarray:
+    """An ``INTER_AREA`` downscale of (H, W, C) uint8 in OpenCV's arithmetic.
+    Integer ratios (``resizeAreaFast_``): the block's int sum times float32
+    ``1 / area``, rounded half to even; halving 1, 3 or 4 channels,
+    ``(sum + 2) >> 2``. Else (``ResizeArea_Invoker``): each row's taps summed
+    left to right in float32, the rows' weighted sums top to bottom, rounded
+    half to even."""
+    H, W, C = img.shape
+    if H % h == 0 and W % w == 0:
+        ky, kx = H // h, W // w
+        s = img.reshape(h, ky, w, kx, C).astype(np.int64).sum(axis=(1, 3))
+        if ky == kx == 2 and C in (1, 3, 4):
+            return ((s + 2) >> 2).astype(np.uint8)
+        out = s.astype(np.float32) * (np.float32(1) / np.float32(ky * kx))
+    else:
+        xi, xa = _area_taps(W, w)
+        yi, ya = _area_taps(H, h)
+        f = img.astype(np.float32)
+        rows = np.zeros((H, w, C), np.float32)
+        for t in range(xi.shape[1]):
+            rows = rows + f[:, xi[:, t], :] * xa[None, :, t, None]
+        out = np.zeros((h, w, C), np.float32)
+        for t in range(yi.shape[1]):
+            out = out + ya[:, t, None, None] * rows[yi[:, t]]
     return np.clip(np.rint(out), 0, 255).astype(np.uint8)
+
+
+def resize_area_uint8(img: np.ndarray, h: int, w: int) -> np.ndarray:
+    """``cv2.resize(img, (w, h), interpolation=cv2.INTER_AREA)`` of a uint8
+    (H, W) or (H, W, C) image, down or up, bit for bit: OpenCV's own
+    summation order and rounding for a downscale, its fixed-point two-tap
+    tables when either axis grows."""
+    img = np.asarray(img)
+    if img.dtype != np.uint8 or img.ndim not in (2, 3):
+        raise ValueError(f"resize_area_uint8 takes uint8 (H, W) or (H, W, C), "
+                         f"got {img.dtype} {img.shape}")
+    x = img[..., None] if img.ndim == 2 else img
+    if h > x.shape[0] or w > x.shape[1]:
+        out = _area_linear_uint8(x, h, w)
+    else:
+        out = _area_mean_uint8(x, h, w)
+    return out[..., 0] if img.ndim == 2 else out

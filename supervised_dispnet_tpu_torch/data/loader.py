@@ -1,6 +1,8 @@
 """Host-side batch loader with background prefetch, the port's copy of
-``supervised_dispnet_tpu/data/loader.py`` for datasets with a vectorized
-``get_batch(ids)`` (the packed datasets).
+``supervised_dispnet_tpu/data/loader.py`` for datasets with a
+``get_batch(ids)``: one vectorized gather for the packed datasets, the
+batch's frames decoded and stacked for the dump-tree folders
+(``data/sequence_folders.py``, ``data/validation_folders.py``).
 
 A producer thread gathers upcoming batches while the card computes, with
 ``num_workers`` threads gathering batches side by side and handing them on

@@ -1,5 +1,6 @@
-"""Packed binary dataset readers (the port's own copy of the readers in
-``supervised_dispnet_tpu/data/packed.py``), plus ``write_split``.
+"""Packed binary datasets: the port's own copy of
+``supervised_dispnet_tpu/data/packed.py`` (``pack_split``, the readers and
+the CLI), plus ``write_split``.
 
 A packed split is raw numpy memmaps, so a batch is one fancy-index gather
 from the page cache and the host needs no image decoder. Layout (one
@@ -11,8 +12,11 @@ directory per split):
       intrinsics.f32   (n_scenes, 3, 3) float32
       meta.json        shapes + scene bounds + per-frame depth mask
 
-Packing a JPEG dump tree (``pack_split``) stays with the JAX package's tools
-for now; ``write_split`` writes a split from arrays already in memory.
+``pack_split`` packs a split of a ``data/prepare_train_data.py`` dump tree,
+decoding each frame once with the port's codec; ``write_split`` writes a
+split from arrays already in memory. From the shell:
+
+    python -m supervised_dispnet_tpu_torch.data.packed <dump_root> <out_root>
 """
 
 from __future__ import annotations
@@ -24,6 +28,65 @@ from pathlib import Path
 import numpy as np
 
 META_NAME = "meta.json"
+
+
+def pack_split(dump_root: str | Path, out_root: str | Path, split: str = "train") -> dict:
+    """Pack one split of a dump tree into ``out_root/<split>``; returns the
+    meta dict. Frames must share one resolution (the ETL dumps a fixed
+    size). A frame has GT depth when its same-stem ``.npy`` exists."""
+    from supervised_dispnet_tpu_torch.data.sequence_folders import (
+        load_as_uint8, read_intrinsics, read_scenes, scene_frames)
+
+    dump_root = Path(dump_root)
+    out_dir = Path(out_root) / split
+    out_dir.mkdir(parents=True, exist_ok=True)
+    frames: list[Path] = []
+    scene_bounds: list[tuple[int, int]] = []
+    intrinsics = []
+    for scene in read_scenes(dump_root, split):
+        imgs = scene_frames(scene)
+        if not imgs:
+            continue
+        start = len(frames)
+        frames.extend(imgs)
+        scene_bounds.append((start, len(frames)))
+        intrinsics.append(read_intrinsics(scene))
+    if not frames:
+        raise ValueError(f"no frames under {dump_root} ({split}.txt)")
+
+    H, W = load_as_uint8(frames[0]).shape[:2]
+    n = len(frames)
+    img_mm = np.memmap(out_dir / "images.u8", mode="w+", dtype=np.uint8, shape=(n, H, W, 3))
+    has_depth = np.zeros(n, dtype=bool)
+    depth_mm = None
+    for i, f in enumerate(frames):
+        img = load_as_uint8(f)
+        if img.shape[:2] != (H, W):
+            raise ValueError(f"{f}: shape {img.shape[:2]} != ({H}, {W}): packed "
+                             "datasets require one dump resolution")
+        img_mm[i] = img
+        d = f.with_suffix(".npy")
+        if d.exists():
+            if depth_mm is None:
+                depth_mm = np.memmap(out_dir / "depth.f32", mode="w+", dtype=np.float32,
+                                     shape=(n, H, W))
+            depth_mm[i] = np.load(d).astype(np.float32)
+            has_depth[i] = True
+    img_mm.flush()
+    del img_mm
+    if depth_mm is not None:
+        depth_mm.flush()
+        del depth_mm
+    np.stack(intrinsics).astype(np.float32).tofile(out_dir / "intrinsics.f32")
+    meta = {
+        "height": int(H), "width": int(W), "n_frames": n,
+        "n_scenes": len(scene_bounds),
+        "scene_bounds": [list(b) for b in scene_bounds],
+        "has_depth": has_depth.tolist(),
+        "with_depth": bool(has_depth.any()),
+    }
+    (out_dir / META_NAME).write_text(json.dumps(meta))
+    return meta
 
 
 def write_split(out_dir: str | Path, images: np.ndarray, intrinsics: np.ndarray,
@@ -151,3 +214,27 @@ class PackedValidationSet:
         raw = self.split.images[f]
         img = np.asarray(raw) if self.uint8 else raw.astype(np.float32) / 255.0
         return {"img": img, "depth": np.asarray(self.split.depth[f])}
+
+
+def main(argv: list[str] | None = None) -> None:
+    """CLI: pack a dump tree's splits.
+
+    python -m supervised_dispnet_tpu_torch.data.packed <dump_root> <out_root>
+    """
+    import argparse
+
+    p = argparse.ArgumentParser(description="Pack a dumped dataset for the "
+                                            "zero-decode input pipeline")
+    p.add_argument("dump_root")
+    p.add_argument("out_root")
+    p.add_argument("--splits", nargs="+", default=["train", "val"])
+    args = p.parse_args(argv)
+    for split in args.splits:
+        meta = pack_split(args.dump_root, args.out_root, split)
+        size_mb = meta["n_frames"] * meta["height"] * meta["width"] * 3 / 1e6
+        print(f"packed {split}: {meta['n_frames']} frames ({meta['n_scenes']} scenes, "
+              f"{size_mb:.0f} MB images{', +depth' if meta['with_depth'] else ''})")
+
+
+if __name__ == "__main__":
+    main()

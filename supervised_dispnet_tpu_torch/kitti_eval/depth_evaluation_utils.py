@@ -2,7 +2,7 @@
 depth caps, median scaling. The port's copy of
 ``supervised_dispnet_tpu/kitti_eval/depth_evaluation_utils.py`` (pure
 numpy, as there): the projection takes the numpy path only, and the frames
-are read with the port's own PNG decoder (``utils/image_io.py``).
+are read with the port's own codec (``utils/image_io.py::read_image``).
 
 Rebuild of the reference harness (reference:
 ``kitti_eval/depth_evaluation_utils.py::{test_framework_KITTI,
@@ -24,7 +24,7 @@ from pathlib import Path
 
 import numpy as np
 
-from supervised_dispnet_tpu_torch.utils.image_io import read_png
+from supervised_dispnet_tpu_torch.utils.image_io import read_image
 
 # Garg ECCV16 crop, fractions of (H, W)
 GARG_CROP = (0.40810811, 0.99189189, 0.03594771, 0.96405229)
@@ -215,7 +215,7 @@ class KittiEigenFramework:
             velo = (
                 self.root / date / drive / "velodyne_points" / "data" / f"{frame}.bin"
             )
-            img = read_png(img_path)
+            img = read_image(img_path)
             gt = generate_depth_map(self.root / date, velo, img.shape[:2])
             yield {
                 "img": img,

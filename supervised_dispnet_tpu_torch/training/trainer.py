@@ -30,6 +30,8 @@ from supervised_dispnet_tpu_torch.data.device_cache import DeviceResidentSequenc
 from supervised_dispnet_tpu_torch.data.loader import BatchLoader
 from supervised_dispnet_tpu_torch.data.packed import (
     PackedSequenceDataset, PackedValidationSet, is_packed)
+from supervised_dispnet_tpu_torch.data.sequence_folders import SequenceFolder
+from supervised_dispnet_tpu_torch.data.validation_folders import ValidationSet
 from supervised_dispnet_tpu_torch.losses.classification import DepthBins
 from supervised_dispnet_tpu_torch.models.common import set_compute_dtype
 from supervised_dispnet_tpu_torch.ops.warp import inverse_warp
@@ -302,10 +304,18 @@ class Trainer:
                                           and cfg.loader != "device"):
             raise ValueError(f"steps_per_dispatch={cfg.steps_per_dispatch} needs "
                              "loader='device' (and must be >= 1)")
-        if not is_packed(cfg.data):
-            raise NotImplementedError(
-                f"{cfg.data!r} is not a packed dataset: the port reads packed "
-                "splits only (data/packed.py); JPEG dump trees: see ROADMAP.md")
+        packed = is_packed(cfg.data)
+        if packed:
+            sequences, validation = PackedSequenceDataset, PackedValidationSet
+        elif cfg.loader == "device":
+            raise ValueError(
+                "--loader device requires a packed dataset root: pack the dump "
+                "first: python -m supervised_dispnet_tpu_torch.data.packed "
+                f"{cfg.data} <out_root>")
+        else:
+            # a dump tree (data/prepare_train_data.py): frames decoded on the
+            # -j threads of the host loader
+            sequences, validation = SequenceFolder, ValidationSet
         # supervised training never reads the reference frames
         seq = dict(sequence_length=cfg.sequence_length if self.selfsup else 1,
                    with_depth=not self.selfsup)
@@ -316,23 +326,22 @@ class Trainer:
                 **seq)
         else:
             train_loader = BatchLoader(
-                PackedSequenceDataset(cfg.data, seed=cfg.seed, train=True, uint8=True, **seq),
+                sequences(cfg.data, seed=cfg.seed, train=True, uint8=True, **seq),
                 cfg.batch_size, shuffle=True, num_workers=cfg.workers, seed=cfg.seed,
                 epoch_size=cfg.epoch_size or None)
         try:
-            val_set = PackedValidationSet(cfg.data, uint8=True)
-        except FileNotFoundError:
+            val_set = validation(cfg.data, uint8=True)
+        except FileNotFoundError:  # a packed val split without GT depth
             val_set = None
         self.val_with_gt = val_set is not None and len(val_set) >= cfg.batch_size
         if not self.val_with_gt:
             if not self.selfsup:
                 raise RuntimeError(
-                    "no packed val split with GT depth for a whole batch, and "
+                    "no val split with GT depth for a whole batch, and "
                     "not self-supervised: validation needs GT depth")
             # no GT depth: validate with the self-supervised losses
-            val_set = PackedSequenceDataset(cfg.data, seed=cfg.seed, train=False,
-                                            sequence_length=cfg.sequence_length,
-                                            shuffle=False, uint8=True)
+            val_set = sequences(cfg.data, seed=cfg.seed, train=False,
+                                sequence_length=cfg.sequence_length, shuffle=False, uint8=True)
         val_loader = BatchLoader(val_set, cfg.batch_size, shuffle=False,
                                  num_workers=cfg.workers)
         return train_loader, val_loader

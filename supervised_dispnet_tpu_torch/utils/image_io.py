@@ -1,16 +1,26 @@
-"""A PNG codec in ``zlib`` and numpy: the port reads KITTI's frames and
-writes its depth images without ``imageio``, ``cv2`` or PIL, none of which
-it depends on.
+"""The port's image codec: PNG in ``zlib`` with the row unfilter in native
+code, and baseline JPEG in native code (``csrc/host/image_codec.cpp``, built
+with ``g++`` at first use by ``utils/native.py``). The port reads KITTI's
+frames and the training dump trees' JPEGs, and writes its depth images and
+dump frames, without ``imageio``, ``cv2`` or PIL, none of which it depends on.
 
+``read_image`` / ``decode_image`` pick PNG or JPEG by the file's signature
+and return (H, W, 3) uint8 RGB, as ``cv2.imread(path, IMREAD_COLOR)[..., ::-1]``
+gives it: the JPEG decoder follows libjpeg-turbo's arithmetic (its islow
+IDCT, fancy upsampling and colour tables), so its pixels equal cv2's.
 ``read_png`` decodes 8-bit grey, grey+alpha, RGB and RGBA images, not
 interlaced, with any of the five row filters; anything else (palette,
 1/2/4/16-bit samples, Adam7 interlacing) raises ``ValueError`` naming the
-file. ``write_png`` writes 8-bit images of 1 to 4 channels with one filter
-type on every row.
+file, as do JPEGs the decoder does not take (progressive, arithmetic,
+lossless, 12-bit, CMYK, truncated or corrupt). ``write_png`` writes 8-bit
+images of 1 to 4 channels with one filter type on every row; ``write_jpeg``
+writes a baseline 4:2:0 JPEG as ``cv2.imwrite`` does with its defaults.
+BMP and other formats are not read.
 """
 
 from __future__ import annotations
 
+import ctypes
 import struct
 import zlib
 from pathlib import Path
@@ -18,9 +28,29 @@ from pathlib import Path
 import numpy as np
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
+_JPEG_SIGNATURE = b"\xff\xd8\xff"
+_ERR_LEN = 256
 # colour type -> channels, for 8-bit samples
 _CHANNELS = {0: 1, 4: 2, 2: 3, 6: 4}
 _COLOR_TYPE = {c: t for t, c in _CHANNELS.items()}
+
+
+def _codec() -> ctypes.CDLL:
+    """The native codec, built at first use."""
+    from supervised_dispnet_tpu_torch.utils.native import load_library
+
+    u8p, i32p = ctypes.POINTER(ctypes.c_uint8), ctypes.POINTER(ctypes.c_int)
+    c_long, c_int, c_char_p = ctypes.c_long, ctypes.c_int, ctypes.c_char_p
+    return load_library("image_codec", {
+        "jpeg_header": ([c_char_p, c_long, i32p, i32p, i32p, c_char_p, c_int], c_int),
+        "jpeg_decode": ([c_char_p, c_long, u8p, c_int, c_int, c_char_p, c_int], c_int),
+        "jpeg_encode": ([u8p, c_int, c_int, c_int, u8p, c_long, c_char_p, c_int], c_long),
+        "png_unfilter": ([u8p, c_int, c_long, c_int, u8p], c_int),
+    })
+
+
+def _ptr(a: np.ndarray):
+    return a.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8))
 
 
 def _chunks(data: bytes, path):
@@ -49,7 +79,8 @@ def _paeth(a: np.ndarray, b: np.ndarray, c: np.ndarray) -> np.ndarray:
 
 
 def _unfilter(filtered: np.ndarray, filters: np.ndarray, bpp: int) -> np.ndarray:
-    """Undo the PNG row filters of (H, W, bpp) bytes, one filter type a row.
+    """Undo the PNG row filters of (H, W, bpp) bytes, one filter type a row:
+    the plain numpy version of the native ``png_unfilter``, kept for tests.
 
     Each byte depends on its left (a), upper (b) and upper-left (c)
     neighbours' reconstructed values, so pixel (r, x) can be reconstructed
@@ -125,10 +156,75 @@ def decode_png(data: bytes, path: str | Path = "<bytes>") -> np.ndarray:
     filters = raw[:, 0]
     if (filters > 4).any():
         raise ValueError(f"{path}: unknown PNG row filter {int(filters.max())}")
-    img = raw[:, 1:].reshape(H, W, C)
     if filters.any():
-        img = _unfilter(img, filters, C)
+        img = np.empty((H, W, C), np.uint8)
+        _codec().png_unfilter(_ptr(raw), H, W * C, C, _ptr(img))
+    else:
+        img = raw[:, 1:].reshape(H, W, C)
     return img[:, :, 0] if C == 1 else img
+
+
+def is_jpeg(data: bytes) -> bool:
+    """Whether ``data`` starts with a JPEG's SOI marker and another marker."""
+    return data.startswith(_JPEG_SIGNATURE)
+
+
+def decode_jpeg(data: bytes, path: str | Path = "<bytes>") -> np.ndarray:
+    """(H, W, 3) uint8 RGB of a baseline JPEG's bytes (grey replicated), as
+    libjpeg-turbo decodes it; ``path`` names the file in errors."""
+    lib = _codec()
+    err = ctypes.create_string_buffer(_ERR_LEN)
+    h, w, c = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    if lib.jpeg_header(data, len(data), ctypes.byref(h), ctypes.byref(w), ctypes.byref(c),
+                       err, _ERR_LEN):
+        raise ValueError(f"{path}: {err.value.decode()}")
+    out = np.empty((h.value, w.value, 3), np.uint8)
+    if lib.jpeg_decode(data, len(data), _ptr(out), h.value, w.value, err, _ERR_LEN):
+        raise ValueError(f"{path}: {err.value.decode()}")
+    return out
+
+
+def decode_image(data: bytes, path: str | Path = "<bytes>") -> np.ndarray:
+    """(H, W, 3) uint8 RGB of a PNG's or a JPEG's bytes, chosen by signature,
+    as ``cv2.imread``'s colour mode gives it."""
+    if is_png(data):
+        return as_rgb(decode_png(data, path))
+    if is_jpeg(data):
+        return decode_jpeg(data, path)
+    raise ValueError(f"{path}: not a PNG or JPEG file")
+
+
+def read_image(path: str | Path) -> np.ndarray:
+    """``decode_image`` of a file: (H, W, 3) uint8 RGB."""
+    return decode_image(Path(path).read_bytes(), path)
+
+
+def encode_jpeg(rgb: np.ndarray, quality: int = 95) -> bytes:
+    """A baseline 4:2:0 JPEG of (H, W, 3) uint8 RGB at ``quality`` (1-100),
+    as libjpeg-turbo writes it with its defaults (cv2.imwrite's)."""
+    rgb = np.asarray(rgb)
+    if rgb.dtype != np.uint8 or rgb.ndim != 3 or rgb.shape[2] != 3:
+        raise ValueError(f"encode_jpeg takes (H, W, 3) uint8, got {rgb.dtype} {rgb.shape}")
+    if not 1 <= quality <= 100:
+        raise ValueError(f"JPEG quality must be 1-100, got {quality}")
+    rgb = np.ascontiguousarray(rgb)
+    H, W = rgb.shape[:2]
+    lib = _codec()
+    err = ctypes.create_string_buffer(_ERR_LEN)
+    cap = H * W * 3 + 4096
+    while True:
+        out = np.empty(cap, np.uint8)
+        n = lib.jpeg_encode(_ptr(rgb), H, W, quality, _ptr(out), cap, err, _ERR_LEN)
+        if n == 0:
+            raise ValueError(f"JPEG encode failed: {err.value.decode()}")
+        if n > 0:
+            return out[:n].tobytes()
+        cap = -n  # the exact size the file needs
+
+
+def write_jpeg(path: str | Path, rgb: np.ndarray, quality: int = 95) -> None:
+    """Write ``encode_jpeg(rgb, quality)`` to ``path``."""
+    Path(path).write_bytes(encode_jpeg(rgb, quality))
 
 
 def _filter(img: np.ndarray, kind: int) -> np.ndarray:

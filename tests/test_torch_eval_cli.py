@@ -167,13 +167,41 @@ def test_orbax_directory_raises(data, tmp_path):
                         *_eval_args(data, "--device", "cpu")[2:]])
 
 
+def test_run_inference_over_jpegs_without_imageio(data, tmp_path, monkeypatch):
+    """A folder of JPEGs (drive 1's frames written by cv2 at quality 95)
+    runs through the port's own decoder with ``imageio`` blocked; its ``.npy``
+    depths equal the JAX CLI's (which reads them with ``cv2.imread``) to
+    rtol 1e-4, as on the PNGs."""
+    import cv2
+
+    root = data[0]
+    frames = root / "raw" / DATE / f"{DATE}_drive_0001_sync" / "image_02" / "data"
+    (tmp_path / "jpg").mkdir()
+    for f in sorted(frames.glob("*.png")):
+        cv2.imwrite(str(tmp_path / "jpg" / f"{f.stem}.jpg"), cv2.imread(str(f)))
+    monkeypatch.setitem(sys.modules, "imageio", None)
+    monkeypatch.setitem(sys.modules, "imageio.v2", None)
+    args = ["--pretrained", str(data[2]), "--network", "dispnet", "--dataset-dir",
+            str(tmp_path / "jpg"), *SIZE, "--save-npy", "--img-exts", "jpg"]
+    run_inference.main([*args, "--output-dir", str(tmp_path / "port"), "--device", "cpu"])
+    jax_run_inference.main([*args, "--output-dir", str(tmp_path / "jax")])
+    stems = sorted(f.stem for f in (tmp_path / "jpg").glob("*.jpg"))
+    assert len(stems) == 3
+    for stem in stems:
+        got = np.load(tmp_path / "port" / f"{stem}_depth.npy")
+        assert got.shape == (32, 104) and (got > 0).all()
+        np.testing.assert_allclose(got, np.load(tmp_path / "jax" / f"{stem}_depth.npy"),
+                                   rtol=1e-4)
+
+
 def test_run_inference_names_non_png_files_it_cannot_decode(data, tmp_path, monkeypatch):
-    """Without imageio, a JPEG in the folder raises before any forward."""
+    """Without imageio, a JPEG that the port's codec cannot decode (three
+    bytes) raises ``ValueError`` naming it, before any forward."""
     (tmp_path / "frames").mkdir()
     (tmp_path / "frames" / "a.jpg").write_bytes(b"\xff\xd8\xff")
     monkeypatch.setitem(sys.modules, "imageio", None)
     monkeypatch.setitem(sys.modules, "imageio.v2", None)
-    with pytest.raises(RuntimeError, match="a.jpg"):
+    with pytest.raises(ValueError, match="a.jpg: truncated JPEG"):
         run_inference.main(["--pretrained", str(data[2]), "--dataset-dir",
                             str(tmp_path / "frames"), "--output-dir", str(tmp_path / "o"),
                             "--device", "cpu"])

@@ -13,7 +13,8 @@ import imageio.v2 as imageio
 import numpy as np
 import pytest
 
-from supervised_dispnet_tpu_torch.data.image_resize import resize_area, resize_linear
+from supervised_dispnet_tpu_torch.data.image_resize import (resize_area, resize_area_uint8,
+                                                            resize_linear)
 from supervised_dispnet_tpu_torch.utils.image_io import read_png, write_png
 
 
@@ -125,9 +126,24 @@ def test_resize_linear_matches_cv2_inter_linear(src, dst):
                                rtol=0, atol=1e-5)
 
 
-def test_area_upscale_raises():
-    img = np.zeros((32, 104, 3), np.float32)
-    with pytest.raises(NotImplementedError, match="upscale"):
-        resize_area(img, 64, 104)
-    with pytest.raises(NotImplementedError, match="upscale"):
-        resize_area(img, 16, 208)
+@pytest.mark.parametrize("src,dst", [
+    ((32, 104), (64, 104)),  # one axis grows
+    ((32, 104), (16, 208)),  # one grows, one shrinks: both take the two-tap table
+    ((100, 300), (128, 416)),  # a frame smaller than the network input
+    ((7, 3), (13, 11)),
+    ((5, 5), (128, 416)),
+])
+def test_area_upscale_matches_cv2_inter_area(src, dst):
+    """An ``INTER_AREA`` upscale follows OpenCV's two-tap table: float32 to
+    atol 1e-5 (the matrix products' float32 roundings), uint8 bit for bit
+    (OpenCV's 11-bit fixed point), RGB and grey."""
+    rng = np.random.default_rng(sum(src) + sum(dst))
+    img = rng.uniform(size=src + (3,)).astype(np.float32)
+    want = cv2.resize(img, dst[::-1], interpolation=cv2.INTER_AREA)
+    np.testing.assert_allclose(resize_area(img, *dst), want, rtol=0, atol=1e-5)
+    np.testing.assert_allclose(resize_area(img[..., 0], *dst), want[..., 0], rtol=0, atol=1e-5)
+    u8 = rng.integers(0, 256, src + (3,), dtype=np.uint8)
+    np.testing.assert_array_equal(resize_area_uint8(u8, *dst),
+                                  cv2.resize(u8, dst[::-1], interpolation=cv2.INTER_AREA))
+    np.testing.assert_array_equal(resize_area_uint8(u8[..., 1], *dst),
+                                  cv2.resize(u8[..., 1], dst[::-1], interpolation=cv2.INTER_AREA))
