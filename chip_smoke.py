@@ -138,6 +138,21 @@ Phases; any failure exits non-zero:
        each within rel 1e-6; the host's native and plain PNG decode, JPEG
        decode and encode, the folder loader's frames a second at ``-j 1``
        and ``-j 4`` beside the step's; folder inference over the JPEGs;
+     - int8 serving (``int8_phase``): the int8 twins
+       (``ops/quant.py::QuantizedModel``) of DispResNet-50 fused and
+       unfused, DispNetS, VGG-BN (fused) and FCRN at 128x416, calibrated on
+       the card: int8 conv launches a forward equal to the quantized convs,
+       the card against the CPU twin, img/s at B=8 and 64 beside fp32 (and
+       bf16), peak memory at B=64; every distinct int8 conv of
+       DispResNet-50 (chains, fused decoder; the stem's K = 147), FCRN's
+       unpool convs and DispNetS's ragged channel counts against the plain
+       version (int32 accumulators bit-equal, codes equal, ELU within one)
+       and timed beside ``torch._int_mm`` and cuDNN fp32 / bf16;
+       ``DepthService(int8=True)`` at buckets 1, 8, 64 beside fp32; the eval
+       CLI with ``--int8`` beside fp32; ``cli.train --qat`` 3 steps
+       supervised and self-supervised (launches as without it) and a
+       fake-quant step card against CPU; an int8 export loaded and run in a
+       fresh process;
      - ``ops.warp.inverse_warp`` with its default ``diff_img=True`` and a
        backward into the image, depth and pose (the image+coordinate
        backward's path), against the plain sampler on the card;
@@ -156,7 +171,8 @@ Phases; any failure exits non-zero:
   6. a JSON line of the slice and cross-check numbers, a JSON line of the
      eval and inference numbers, a JSON line of the pose, serving and
      network numbers, a JSON line of the training options' numbers, a JSON
-     line of the photometric arms', loaders', ETL and convergence numbers, a
+     line of the int8 numbers, a JSON line of the photometric arms',
+     loaders', ETL and convergence numbers, a
      JSON line of kernel numbers, the card line, and as the last line
      ``{"ok": true, "device": {...}}``.
 
@@ -1689,10 +1705,11 @@ EVAL_METRICS = ("abs_rel", "sq_rel", "rmse", "rmse_log", "a1", "a2", "a3")
 def kernel_counters():
     """(module, counter) of every launch counter of the port's kernels."""
     from supervised_dispnet_tpu_torch.ops.cuda import classification as kc
+    from supervised_dispnet_tpu_torch.ops.cuda import int8_conv as ki
     from supervised_dispnet_tpu_torch.ops.cuda import losses as kl
     from supervised_dispnet_tpu_torch.ops.cuda import warp as kw
 
-    return [(m, a) for m in (kl, kw, kc) for a in sorted(vars(m))
+    return [(m, a) for m in (kl, kw, kc, ki) for a in sorted(vars(m))
             if a.endswith(("_launches", "_problems"))]
 
 
@@ -3922,6 +3939,507 @@ def selfsup_cross_check(torch, device: str = "cuda") -> dict:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
 
 
+INT8_TOPS = 1979e12  # H100 SXM dense int8 tensor-core peak
+CARD = "cuda"  # the int8 phase's device (a CPU rehearsal sets "cpu")
+# the networks of the int8 phase: (network, fused decoder)
+INT8_NETWORKS = (("disp_res_50", True), ("disp_res_50", False), ("dispnet", False),
+                 ("disp_vgg_bn", True), ("fcrn", False))
+INT8_BATCHES = (8, 64)
+# the int8 conv of the kernels line: DispResNet-50's layer3 3x3 conv (256 ->
+# 256 at stride 16) at B=8, the shape the issue names
+INT8_LINE_CASE = ((8, 8, 26, 256), 3)
+
+
+def _int8_bound(torch, xq, w, geom, out, residual, k) -> tuple[float, str]:
+    """The conv's least time: each input (activations, packed weights,
+    scales, residual) read once and the output written once at 3.35 TB/s,
+    against the MACs its taps need at the int8 tensor-core peak (an
+    lhs-dilated conv's dilation holes need none)."""
+    n_bytes = (xq.numel() + w.numel() + 8 * w.shape[0] + out.numel() * out.element_size()
+               + (0 if residual is None else residual.numel() * residual.element_size()))
+    holes = geom.lhs_dilation[0] * geom.lhs_dilation[1]
+    n_ops = 2.0 * out.shape[0] * out.shape[1] * out.shape[2] * w.shape[0] * k / holes
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / INT8_TOPS
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def _record_int8_calls(torch, twin, x) -> list:
+    """The int8 conv calls of one forward of ``twin``: (x, w, geom, mult,
+    bias, residual, keywords)."""
+    from supervised_dispnet_tpu_torch.ops import quant as pq
+
+    calls, real = [], pq.int8_conv
+
+    def record(xq, w, geom, mult, bias, residual=None, **kw):
+        calls.append((xq, w, geom, mult, bias, residual, kw))
+        return real(xq, w, geom, mult, bias, residual=residual, **kw)
+
+    pq.int8_conv = record
+    try:
+        with torch.inference_mode():
+            twin(x)
+    finally:
+        pq.int8_conv = real
+    return calls
+
+
+def _same_conv_fp(torch, xq, w, geom, dtype):
+    """cuDNN's float conv of the int8 conv's shape (beside the kernel, timed
+    only): NCHW ``dtype`` input and weight; an lhs-dilated conv as the
+    transposed conv that computes it."""
+    import torch.nn.functional as F
+
+    B, H, W, C = xq.shape
+    cout = w.shape[0]
+    x = torch.randn(B, C, H, W, device=CARD, dtype=dtype)
+    pt, pb, pl, pr = geom.padding
+    if geom.lhs_dilation != (1, 1):
+        wt = torch.randn(C, cout, geom.kh, geom.kw, device=CARD, dtype=dtype)
+        return lambda: F.conv_transpose2d(
+            x, wt, stride=geom.lhs_dilation, padding=(geom.kh - 1 - pt, geom.kw - 1 - pl),
+            output_padding=(pb - pt, pr - pl))
+    wt = torch.randn(cout, C, geom.kh, geom.kw, device=CARD, dtype=dtype)
+    return lambda: F.conv2d(x, wt, stride=geom.stride, padding=(pt, pl),
+                            dilation=geom.rhs_dilation)
+
+
+def _kernel_us(torch, fn, name: str, tries: int = 3) -> float | None:
+    """Device µs a launch of the kernel ``name`` from the profiler, profiled
+    again up to ``tries`` times while it shows no event (it can drop them);
+    None (not measured) if it never does."""
+    for _ in range(tries):
+        us, n = device_us(torch, fn, [name], reps=5)[name]
+        if n > 0:
+            return us
+    return None
+
+
+def int8_conv_cases(torch, calls: list, card: str) -> list:
+    """Each distinct conv of ``calls`` (shape, geometry, epilogue) on the
+    card: the kernel's int32 accumulators bit-equal to the plain version's,
+    its output equal (ReLU, none, float outputs) or within one code (ELU),
+    then its time (CUDA events over 20 calls, host included; device µs from
+    the profiler), the plain version's, ``torch._int_mm`` over the im2col
+    matrix's shape (K and N padded to multiples of 8; the im2col itself is
+    not timed), cuDNN's fp32 (TF32 off) and bf16 conv of the shape, and the
+    bound."""
+    from supervised_dispnet_tpu_torch.ops.cuda import int8_conv as ic
+
+    seen, rows = set(), []
+    for xq, w, geom, mult, bias, residual, kw in calls:
+        variant = (kw.get("out", "f32"), kw.get("act", "none"),
+                   None if residual is None else str(residual.dtype))
+        key = (tuple(xq.shape), tuple(w.shape), geom, variant)
+        if key in seen:
+            continue
+        seen.add(key)
+        acc = ic.int8_conv(xq, w, geom, mult, bias, out="s32")
+        acc_plain = ic.conv_acc_plain(xq, w, geom)
+        out = ic.int8_conv(xq, w, geom, mult, bias, residual=residual, **kw)
+        plain = ic.int8_conv_plain(xq, w, geom, mult, bias, residual=residual, **kw)
+        torch.cuda.synchronize()
+        if not torch.equal(acc, acc_plain):
+            raise AssertionError(f"int8 conv {key}: accumulators differ from the plain "
+                                 f"version by up to {int((acc - acc_plain).abs().max())}")
+        err = float((out.float() - plain.float()).abs().max())
+        codes = variant[0] == "s8"
+        limit = 1.0 if codes and variant[1] == "elu" else 0.0
+        if err > limit:
+            raise AssertionError(f"int8 conv {key}: output off the plain version by {err}")
+        k = geom.kh * geom.kw * xq.shape[3]
+        row = {"x": list(xq.shape), "cout": w.shape[0], "k": k, "geom": geom.as_list(),
+               "out": variant[0], "act": variant[1], "residual": variant[2],
+               "max_abs_err": err, "card": card}
+        row["bound_ms"], row["bound_by"] = _int8_bound(torch, xq, w, geom, out, residual, k)
+
+        def fn(xq=xq, w=w, geom=geom, mult=mult, bias=bias, residual=residual, kw=kw):
+            return ic.int8_conv(xq, w, geom, mult, bias, residual=residual, **kw)
+
+        row["ms"] = cuda_ms(torch, fn, reps=20, warmup=3)
+        row["device_us"] = _kernel_us(torch, fn, "int8_conv_kernel")
+        row["plain_ms"] = cuda_ms(torch, lambda: ic.int8_conv_plain(
+            xq, w, geom, mult, bias, residual=residual, **kw), reps=3, warmup=1)
+        M = out.shape[0] * out.shape[1] * out.shape[2]
+        a = torch.randint(-127, 128, (max(M, 17), -(-k // 8) * 8), device=CARD,
+                          dtype=torch.int8)
+        b = torch.randint(-127, 128, (-(-w.shape[0] // 8) * 8, a.shape[1]),
+                          device=CARD, dtype=torch.int8).t()
+        row["library_ms"] = cuda_ms(torch, lambda: torch._int_mm(a, b), reps=20, warmup=3)
+        for dt, name in ((torch.float32, "cudnn_fp32_ms"), (torch.bfloat16, "cudnn_bf16_ms")):
+            row[name] = cuda_ms(torch, _same_conv_fp(torch, xq, w, geom, dt), reps=20,
+                                warmup=3)
+        rows.append(row)
+    return rows
+
+
+def _bn_to_batch(torch, model, x) -> None:
+    """Set every BatchNorm's running statistics to those of batch ``x`` (a
+    train-mode forward with momentum 1), as a trained model's describe its
+    data: with the init's statistics a random ResNet-50's activations reach
+    ~1e4 and its int8 forward says nothing of a trained one
+    (``tests/torch_quant_ref.py`` does the same through JAX)."""
+    bns = [m for m in model.modules() if isinstance(m, torch.nn.BatchNorm2d)]
+    for m in bns:
+        m.momentum = 1.0
+    model.train()
+    with torch.no_grad():
+        model(x)
+    model.eval()
+    for m in bns:
+        m.momentum = 0.1
+
+
+def _int8_model(torch, network: str, fused: bool, ckpt: str | None):
+    from supervised_dispnet_tpu_torch.cli.test_disp import load_model
+    from supervised_dispnet_tpu_torch.models import get_disp_net
+
+    if ckpt is not None and network == "disp_res_50":
+        return load_model(ckpt, network, fused_upsample=fused, device=CARD)
+    return get_disp_net(network, fused_upsample=fused, seed=13, device=CARD).eval()
+
+
+def int8_networks_phase(torch, card: str, ckpt: str | None) -> tuple[dict, list]:
+    """``quantized_apply``'s int8 twin of each network of ``INT8_NETWORKS``
+    at 128x416, its BN statistics those of 8 normalised random frames
+    (``_bn_to_batch``), calibrated on them: its int8 conv
+    launches a forward at B=8 (one a quantized conv: ``n_int8_convs``),
+    the finest output against the CPU twin's (same weights and ranges, B=1;
+    FCRN's depth with a floor of 1e-3 of its largest): median rel <= 1e-3
+    and 99th percentile <= 2e-2, the CPU tests' limits, max <= 0.25. The
+    int8 convs agree bit for bit (``int8_conv_cases``), but the float ops
+    between them (bilinear resizes, the per-conv path's BN, the fused
+    stage's border corrections, the bf16 heads) round otherwise on the two
+    devices, and a value within an ulp of a rounding half moves its code by
+    one, which a briefly trained net carries to a pixel's disparity by up to
+    several percent (seen: 7.6% on one pixel of the unfused DispResNet-50,
+    median 0). FCRN's float BNs between its int8 convs carry
+    such flips through four up-projections to a ReLU'd depth: held to its
+    median and finiteness alone, as JAX holds a random-init FCRN's int8
+    forward (seen: p99 1e-6 to 1.4e-2, one pixel 0.89). img/s at
+    B=8 and 64 (CUDA
+    events) beside the float32 forward (TF32 off) and, for the networks with
+    a bf16 trunk, the bf16 one; peak memory of a forward at B=64 beside
+    fp32's (above what the card held before it). Returns
+    (results, the int8 conv calls of DispResNet-50 fused and unfused, FCRN's
+    unpool convs and DispNetS's ragged-channel ones)."""
+    from supervised_dispnet_tpu_torch.models.common import set_compute_dtype
+    from supervised_dispnet_tpu_torch.ops import quant as pq
+    from supervised_dispnet_tpu_torch.ops.cuda import int8_conv as ic
+    from supervised_dispnet_tpu_torch.utils.device import set_fp32_math
+
+    set_fp32_math()
+    _, H, W = MAIN_SHAPE
+    gen = torch.Generator().manual_seed(21)
+    frames = {b: (torch.rand(b, H, W, 3, generator=gen) * 2 - 1).to(CARD)
+              for b in INT8_BATCHES}
+    out, calls = {}, []
+    top = INT8_BATCHES[-1]
+    for network, fused in INT8_NETWORKS:
+        label = f"{network}{'-fused' if fused else ''}"
+        model = _int8_model(torch, network, fused, ckpt)
+        _bn_to_batch(torch, model, frames[8])
+        ranges = pq.calibrate_conv_ranges(model, [frames[8]], percentile=99.9)
+        twin = pq.QuantizedModel(model, ranges).to(CARD)
+        ic.reset_counts()
+        with torch.inference_mode():
+            twin(frames[8])
+        torch.cuda.synchronize()
+        if ic.int8_conv_launches != twin.n_int8_convs or not twin.n_int8_convs:
+            raise AssertionError(f"int8 {label}: {ic.int8_conv_launches} int8 conv launches "
+                                 f"a forward, {twin.n_int8_convs} quantized convs")
+        res = {"int8_convs": twin.n_int8_convs, "launches": ic.int8_conv_launches,
+               "variants": dict(ic.int8_conv_variants), "encoder_chain": twin.encoder_chain,
+               "decoder_chain": twin.dec_chain, "card": card}
+        mine = _record_int8_calls(torch, twin, frames[8])
+        if network == "disp_res_50":
+            calls += mine
+        elif network == "fcrn":
+            calls += [c for c in mine if c[2].lhs_dilation == (2, 2)]
+        elif network == "dispnet":
+            calls += [c for c in mine if c[0].shape[3] % 4]
+        # the card against the CPU: the same twin's weights and ranges, B=1
+        cpu_twin = pq.QuantizedModel(copy.deepcopy(model).cpu(), ranges)
+        with torch.inference_mode():
+            got = twin(frames[8][:1])
+            want = cpu_twin(frames[8][:1].cpu())
+        g = (got[0] if isinstance(got, list) else got).float().cpu().numpy()
+        wt = (want[0] if isinstance(want, list) else want).float().numpy()
+        floor = 1e-3 * np.abs(wt).max() if network == "fcrn" else 1e-6
+        rel = np.abs(g - wt) / np.maximum(np.abs(wt), floor)
+        res["card_vs_cpu"] = {"median_rel": float(np.median(rel)),
+                              "p99_rel": float(np.percentile(rel, 99)),
+                              "max_rel": float(rel.max()),
+                              "share_above_1e-3": float((rel > 1e-3).mean())}
+        tails = network == "fcrn" or (np.percentile(rel, 99) <= 2e-2 and rel.max() <= 0.25)
+        if not (np.isfinite(g).all() and np.median(rel) <= 1e-3 and tails):
+            raise AssertionError(f"int8 {label}: card vs CPU {res['card_vs_cpu']}")
+        bf16 = None
+        if getattr(model, "has_compute_dtype", False):
+            bf16 = copy.deepcopy(model)
+            set_compute_dtype(bf16, torch.bfloat16)
+        for b in INT8_BATCHES:
+            x = frames[b]
+            for name, net in (("int8", twin), ("fp32", model), ("bf16", bf16)):
+                if net is None:
+                    continue
+
+                def fwd(net=net):
+                    with torch.inference_mode():
+                        return net(x)
+
+                ms = cuda_ms(torch, fwd, reps=10 if b == top else 20, warmup=2)
+                res[f"{name}_b{b}_img_s"] = b / ms * 1e3
+                if b == top:
+                    torch.cuda.synchronize()
+                    torch.cuda.reset_peak_memory_stats()
+                    base = torch.cuda.memory_allocated()
+                    fwd()
+                    torch.cuda.synchronize()
+                    res[f"{name}_peak_mib"] = (torch.cuda.max_memory_allocated() - base) / 2**20
+        print(f"  int8 {label}: {res['int8_convs']} int8 convs a forward (launches "
+              f"{res['launches']}; chains: encoder {res['encoder_chain']}, decoder "
+              f"{res['decoder_chain']}); card vs CPU median rel "
+              f"{res['card_vs_cpu']['median_rel']:.3g}, p99 {res['card_vs_cpu']['p99_rel']:.3g}, "
+              f"max {res['card_vs_cpu']['max_rel']:.3g}, share above 1e-3 "
+              f"{res['card_vs_cpu']['share_above_1e-3']:.3g}; "
+              + "; ".join(f"B={b} img/s int8 {res[f'int8_b{b}_img_s']:.1f} fp32 "
+                          f"{res[f'fp32_b{b}_img_s']:.1f}"
+                          + (f" bf16 {res[f'bf16_b{b}_img_s']:.1f}" if bf16 is not None else "")
+                          for b in INT8_BATCHES)
+              + f"; B={top} peak MiB int8 {res['int8_peak_mib']:.0f} fp32 "
+              f"{res['fp32_peak_mib']:.0f}; on {card}", flush=True)
+        out[label] = res
+        del twin, cpu_twin, bf16, model
+        torch.cuda.empty_cache()
+    return out, calls
+
+
+def int8_serving_phase(torch, tmp: Path, card: str, ckpt: str, tree: Path) -> dict:
+    """``DepthService(int8=True)`` from the BerHu run's DispResNet-50
+    checkpoint, fused, calibrated on the tree's first 8 frames (area-resized
+    as requests are), beside the fp32 service: p50 latency at one request in
+    flight (bucket 1) and img/s of ``predict`` at buckets 8 and 64 (host
+    clock around the call, readback included); int8 against fp32 depth."""
+    from supervised_dispnet_tpu_torch.data.image_resize import resize_area_uint8
+    from supervised_dispnet_tpu_torch.kitti_eval.synthetic import DATE
+    from supervised_dispnet_tpu_torch.ops.cuda import int8_conv as ic
+    from supervised_dispnet_tpu_torch.serving import DepthService, ServingConfig
+    from supervised_dispnet_tpu_torch.utils.image_io import read_image
+
+    _, H, W = MAIN_SHAPE
+    frames = sorted((tree.parent / DATE / f"{DATE}_drive_0001_sync" / "image_02" /
+                     "data").glob("*.png"))[:8]
+    calib = [resize_area_uint8(read_image(f), H, W) for f in frames]
+    out = {"card": card}
+    imgs = np.random.default_rng(16).integers(0, 256, (64, H, W, 3), dtype=np.uint8)
+    preds = {}
+    for name, int8 in (("int8", True), ("fp32", False)):
+        svc = DepthService.from_checkpoint(ckpt, "disp_res_50", ServingConfig(
+            img_height=H, img_width=W, int8=int8), calibration=calib if int8 else None)
+        svc.warmup()
+        ic.reset_counts()
+        res = {"latency_b1": _serve_latency(svc, calib, n=40)}
+        for b in (8, 64):
+            svc.predict(imgs[:b])
+            t0 = time.perf_counter()
+            for _ in range(5):
+                svc.predict(imgs[:b])
+            res[f"b{b}_img_s"] = 5 * b / (time.perf_counter() - t0)
+        res["int8_conv_launches"] = ic.int8_conv_launches
+        if (ic.int8_conv_launches > 0) != int8:
+            raise AssertionError(f"serving {name}: {ic.int8_conv_launches} int8 conv launches")
+        preds[name] = svc.predict(imgs[:8])
+        out[name] = res
+        print(f"  int8 serving {name}: p50 {res['latency_b1']['p50_ms']:.2f} ms at bucket 1; "
+              f"predict {res['b8_img_s']:.1f} img/s at 8, {res['b64_img_s']:.1f} at 64; "
+              f"int8 conv launches {res['int8_conv_launches']}; on {card}", flush=True)
+    rel = np.abs(preds["int8"] - preds["fp32"]) / np.abs(preds["fp32"])
+    out["int8_vs_fp32"] = {"median_rel": float(np.median(rel)), "max_rel": float(rel.max())}
+    if not np.isfinite(preds["int8"]).all():
+        raise AssertionError("int8 serving: depth not finite")
+    print(f"  int8 serving: depth against fp32 median rel {np.median(rel):.4g}", flush=True)
+    return out
+
+
+def int8_train_phase(torch, tmp: Path, card: str) -> dict:
+    """``cli/train.py --qat``, 3 steps each: DispResNet-50 BerHu (1 + 1
+    grouped BerHu launches a step, as without --qat) and DispNetS +
+    PoseExpNet self-supervised (1 + 1 grouped warp launches a step, 1
+    forward a validation batch), at 128x416, B=4; then one fake-quant step
+    of DispResNet-18 card against CPU from the same weights and batch: the
+    loss within rel 1e-3 (the QDQ rounds values the two devices compute to
+    fp32 rounding; the gradients under fake quant are not fixed by the
+    inputs at that rounding, ``tests/test_torch_qat.py``, so they are held
+    by their norms, ratio 0.5..2)."""
+    from supervised_dispnet_tpu_torch.cli import train as train_cli
+    from supervised_dispnet_tpu_torch.models import DispResNet
+    from supervised_dispnet_tpu_torch.ops.cuda import losses as kl
+    from supervised_dispnet_tpu_torch.ops.cuda import warp as kw
+    from supervised_dispnet_tpu_torch.training.train_step import make_supervised_train_step
+    from supervised_dispnet_tpu_torch.training.trainer import TrainerConfig, build_optimizer
+
+    B, H, W = MAIN_SHAPE
+    out = {"card": card}
+    write_packed(tmp / "sup", np.random.default_rng(31), H, W)
+    write_packed(tmp / "ss", np.random.default_rng(32), H, W, with_depth=False)
+    kl.berhu_fwd_launches = kl.berhu_bwd_launches = kl.berhu_fwd_problems = 0
+    with contextlib.redirect_stdout(_Tee(sys.stdout)):
+        t = train_cli.main([str(tmp / "sup"), "--network", "disp_res_50", "--loss", "berhu",
+                            "-b", str(B), "--epoch-size", "3", "--epochs", "1", "--qat",
+                            "--checkpoints-dir", str(tmp / "ck"), "--name", "qat"])
+    torch.cuda.synchronize()
+    got = (kl.berhu_fwd_launches, kl.berhu_bwd_launches, kl.berhu_fwd_problems)
+    if t.step != 3 or got != (3, 3, 12):
+        raise AssertionError(f"--qat BerHu: {t.step} steps, launches {got} (want 3, 3, 12)")
+    out["supervised"] = {"steps": t.step, "berhu_launches": got}
+    for attr in ("warp_fwd_launches", "warp_bwd_launches", "warp_bwd_coords_launches"):
+        setattr(kw, attr, 0)
+    with contextlib.redirect_stdout(_Tee(sys.stdout)):
+        t = train_cli.main([str(tmp / "ss"), "--network", "dispnet", "--loss", "selfsup",
+                            "--sequence-length", "3", "-b", str(B), "--epoch-size", "3",
+                            "--epochs", "1", "--qat", "--checkpoints-dir", str(tmp / "ck"),
+                            "--name", "qat_ss"])
+    torch.cuda.synchronize()
+    val_batches = len(t.make_loaders()[1])
+    got = (kw.warp_fwd_launches, kw.warp_bwd_launches, kw.warp_bwd_coords_launches)
+    if t.step != 3 or got != (3 + val_batches, 0, 3):
+        raise AssertionError(f"--qat selfsup: {t.step} steps, warp launches {got}")
+    out["selfsup"] = {"steps": t.step, "warp_launches": got}
+
+    gen = torch.Generator().manual_seed(33)
+    net = DispResNet(18, generator=gen)
+    rng = np.random.default_rng(34)
+    batch = {"tgt": rng.integers(0, 256, (2, H, W, 3), dtype=np.uint8),
+             "intrinsics": np.tile(np.array(KITTI_K, np.float32), (2, 1, 1)),
+             "depth": (rng.uniform(1, 80, (2, H, W)) * (rng.uniform(size=(2, H, W)) < 0.1)
+                       ).astype(np.float32)}
+    from supervised_dispnet_tpu_torch.data.augment import AugmentConfig
+
+    no_aug = AugmentConfig(flip=False, scale_crop=False, color_jitter=False)
+    res = {}
+    for dev in (CARD, "cpu"):
+        m = copy.deepcopy(net).to(dev)
+        opt = build_optimizer(TrainerConfig(), m.parameters())
+        step = make_supervised_train_step(m, opt, "berhu", aug=no_aug, fake_quant=True)
+        loss = step({k: torch.from_numpy(v).to(dev) for k, v in batch.items()})["loss"]
+        res[dev] = (float(loss), {n: float(p.grad.norm()) for n, p in m.named_parameters()})
+    card_res, cpu_res = res[CARD], res["cpu"]
+    loss_rel = abs(card_res[0] - cpu_res[0]) / abs(cpu_res[0])
+    ratios = [card_res[1][n] / max(v, 1e-30) for n, v in cpu_res[1].items() if v > 0]
+    out["card_vs_cpu"] = {"loss_rel": loss_rel, "grad_norm_ratio": [min(ratios), max(ratios)]}
+    print(f"  --qat: BerHu {out['supervised']['berhu_launches']}, selfsup warp "
+          f"{out['selfsup']['warp_launches']} launches over 3 steps; fake-quant step card vs "
+          f"CPU loss rel {loss_rel:.3g}, gradient norm ratios {min(ratios):.3f}.."
+          f"{max(ratios):.3f}", flush=True)
+    if loss_rel > 1e-3 or min(ratios) < 0.5 or max(ratios) > 2.0:
+        raise AssertionError(f"--qat step card vs CPU: {out['card_vs_cpu']}")
+    return out
+
+
+def int8_export_phase(torch, tmp: Path, card: str, ckpt: str) -> dict:
+    """The int8 twin of the BerHu run's DispResNet-50 (fused) exported with
+    a dynamic batch, then loaded and run on the card in a fresh process that
+    imports only the int8 op's module (and turns TF32 off, as the port's
+    entry points and ``load_forward`` do): its depth equal to the live
+    twin's bit for bit, at B=8 and 3; the int8 program's size beside the
+    fp32 one's."""
+    from supervised_dispnet_tpu_torch.cli.test_disp import load_model
+    from supervised_dispnet_tpu_torch.ops import quant as pq
+    from supervised_dispnet_tpu_torch.utils import export as ex
+
+    _, H, W = MAIN_SHAPE
+    model = load_model(ckpt, "disp_res_50", fused_upsample=True, device=CARD)
+    x = (torch.rand(8, H, W, 3, generator=torch.Generator().manual_seed(35)) * 2 - 1).to(CARD)
+    ranges = pq.calibrate_conv_ranges(model, [x])
+    t0 = time.perf_counter()
+    ex.export_forward(model, tmp / "q.pt2", batch_size="dynamic", img_height=H, img_width=W,
+                      int8_ranges=ranges)
+    ex.export_forward(model, tmp / "fp.pt2", batch_size="dynamic", img_height=H, img_width=W)
+    export_s = time.perf_counter() - t0
+    with torch.inference_mode():
+        twin = pq.QuantizedModel(model, ranges).to(CARD)
+        np.save(tmp / "want8.npy", twin(x)[0].cpu().numpy())
+        np.save(tmp / "want3.npy", twin(x[:3])[0].cpu().numpy())
+    np.save(tmp / "x.npy", x.cpu().numpy())
+    code = (
+        "import sys, numpy as np, torch\n"
+        "import supervised_dispnet_tpu_torch.ops.cuda.int8_conv as ic\n"
+        "torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False\n"
+        f"f = torch.export.load({str(tmp / 'q.pt2')!r}).module()\n"
+        f"x = torch.from_numpy(np.load({str(tmp / 'x.npy')!r})).to({CARD!r})\n"
+        "with torch.no_grad():\n"
+        "    y8, y3 = f(x).cpu().numpy(), f(x[:3]).cpu().numpy()\n"
+        f"assert np.array_equal(y8, np.load({str(tmp / 'want8.npy')!r}))\n"
+        f"assert np.array_equal(y3, np.load({str(tmp / 'want3.npy')!r}))\n"
+        "assert (ic.int8_conv_launches > 0) == x.is_cuda and 'jax' not in sys.modules\n"
+        "assert 'supervised_dispnet_tpu_torch.ops.quant' not in sys.modules\n"
+        "print('launches', ic.int8_conv_launches)\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+                       timeout=600)
+    if r.returncode != 0:
+        raise AssertionError(f"int8 export round trip failed:\n{r.stdout}\n{r.stderr[-4000:]}")
+    res = {"export_s": export_s, "int8_mib": (tmp / "q.pt2").stat().st_size / 2**20,
+           "fp32_mib": (tmp / "fp.pt2").stat().st_size / 2**20,
+           "subprocess": r.stdout.strip(), "card": card}
+    print(f"  int8 export: {res['int8_mib']:.1f} MiB (fp32 {res['fp32_mib']:.1f}); a fresh "
+          f"process ran it bit for bit ({res['subprocess']})", flush=True)
+    if res["int8_mib"] >= res["fp32_mib"]:
+        raise AssertionError(f"the int8 program is not smaller: {res}")
+    return res
+
+
+def int8_phase(torch, tmp: Path, card: str, ckpt: str, tree: Path) -> tuple[dict, dict]:
+    """int8 serving on the card (A5): the networks' int8 twins, every conv
+    shape of DispResNet-50 (chains and fused decoder) at (8, 3, 128, 416),
+    FCRN's unpool convs and DispNetS's ragged ones against the plain
+    version and timed, the int8 service, the eval CLI with ``--int8``
+    beside fp32, ``--qat`` training and an int8 export round trip. Returns
+    (its results, the int8 conv's kernels-line entry)."""
+    tmp.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    nets, calls = int8_networks_phase(torch, card, ckpt)
+    rows = int8_conv_cases(torch, calls, card)
+    del calls
+    torch.cuda.empty_cache()
+    for r in rows:
+        dev = "not measured" if r["device_us"] is None else f"{r['device_us']:.2f} us"
+        print(f"  int8 conv x{r['x']} -> {r['cout']} k {r['k']} geom {r['geom']} "
+              f"{r['out']}/{r['act']}/{r['residual']}: {r['ms']:.4f} ms, device "
+              f"{dev}, bound {r['bound_ms'] * 1e3:.2f} us "
+              f"({r['bound_by']}), plain {r['plain_ms']:.3f} ms, _int_mm "
+              f"{r['library_ms']:.4f} ms, cuDNN fp32 {r['cudnn_fp32_ms']:.4f} / bf16 "
+              f"{r['cudnn_bf16_ms']:.4f} ms", flush=True)
+    shape, kh = INT8_LINE_CASE
+    line = next(r for r in rows if r["x"] == list(shape) and r["geom"][0] == kh
+                and r["cout"] == shape[3])
+    sv = int8_serving_phase(torch, tmp, card, ckpt, tree)
+    from supervised_dispnet_tpu_torch.ops.cuda import int8_conv as ic
+
+    ic.reset_counts()
+    fp = _run_eval(tmp, tree, ckpt, "int8_fp32")
+    q = _run_eval(tmp, tree, ckpt, "int8", "--int8", "--calib-batches", "1",
+                  "--percentile", "99.9")
+    if not ic.int8_conv_launches:
+        raise AssertionError("the eval CLI's --int8 launched no int8 conv")
+    ev = {"fp32": fp["table"], "int8": q["table"], "fp32_wall_s": fp["wall_s"],
+          "int8_wall_s": q["wall_s"], "int8_conv_launches": ic.int8_conv_launches}
+    tr = int8_train_phase(torch, tmp / "qat", card)
+    exp = int8_export_phase(torch, tmp, card, ckpt)
+    entry = {"name": "int8_conv", "route": "cuda",
+             "source": "supervised_dispnet_tpu_torch/csrc/int8_conv.cu",
+             "replaces": "supervised_dispnet_tpu/ops/quant.py:367 (XLA's int8 conv in "
+                         "_conv_q, no pallas_call)",
+             "launches": nets["disp_res_50-fused"]["launches"],
+             "max_abs_err": max(r["max_abs_err"] for r in rows), "ms": line["ms"],
+             "plain_ms": line["plain_ms"], "bound_ms": line["bound_ms"],
+             "bound_by": line["bound_by"], "library_ms": line["library_ms"],
+             "device_us": line["device_us"], "shape": line["x"]}
+    wall = time.perf_counter() - t0
+    print(f"  int8 phase: {wall:.1f} s", flush=True)
+    return {"networks": nets, "conv_cases": rows, "serving": sv, "eval": ev, "qat": tr,
+            "export": exp, "wall_s": wall}, entry
+
+
 def main() -> int:
     import torch
 
@@ -3982,6 +4500,7 @@ def main() -> int:
             raise AssertionError(f"the pose and serving paths launched kernels: "
                                  f"{serve_launches}")
         nets = networks_phase(torch, Path(tmp), card, tree)
+        i8, i8_entry = int8_phase(torch, Path(tmp) / "int8", card, sl["checkpoint"], tree)
         opts = options_phase(torch, Path(tmp) / "options", card)
         arms = photometric_arms_phase(torch, Path(tmp) / "arms", card)
         loaders = device_loader_phase(torch, Path(tmp) / "loaders", card)
@@ -4004,6 +4523,9 @@ def main() -> int:
                 "warp_bwd_coords_group": ss["launches"]["warp_bwd_coords"], **cl["launches"]}
     for name, entry in kernels.items():
         entry["launches"] = launches[name]
+    # the int8 conv's launches: one a quantized conv of DispResNet-50's int8
+    # forward (fused decoder, both chains)
+    kernels["int8_conv"] = i8_entry
     # the photometric arms' grouped launches (5 steps each; validation's
     # beside the CLI's arms) and the training-output image's single forward
     for name, key in (("warp_fwd_group", "warp_fwd"),
@@ -4032,6 +4554,7 @@ def main() -> int:
     print(json.dumps({"pose": po, "serving": sv, "networks": nets,
                       "pose_serving_kernel_launches": serve_launches}))
     print(json.dumps({"options": opts}))
+    print(json.dumps({"int8": i8}))
     print(json.dumps({"photometric_arms": arms, "loaders": loaders, "etl": etl,
                       "convergence": conv}))
     print(json.dumps({"kernels": list(kernels.values())}))

@@ -9,8 +9,10 @@ optional ``.npy`` depth dumps.
 
 PNG and JPEG frames are decoded by the port's own codec
 (``utils/image_io.py::read_image``, chosen by the file's signature); a file
-it does not decode raises ``ValueError`` naming it. Runs on the card unless
-``--device cpu`` is given.
+it does not decode raises ``ValueError`` naming it. ``--int8`` serves the
+int8 path (``ops/quant.py``), calibrated on the folder's first
+``8 * --calib-batches`` images, in batches of 8, as the JAX CLI does. Runs on
+the card unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -20,8 +22,7 @@ from pathlib import Path
 
 import numpy as np
 
-from supervised_dispnet_tpu_torch.cli import parse_args_or_raise
-from supervised_dispnet_tpu_torch.cli.test_disp import LATER_FLAGS, LATER_WHERE
+from supervised_dispnet_tpu_torch.cli.test_disp import add_int8_flags
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -45,13 +46,14 @@ def build_parser() -> argparse.ArgumentParser:
                         "(ops/fused_upconv.py; exact); height and width divisible by 32")
     p.add_argument("--imagenet-normalization", action="store_true")
     p.add_argument("--batch-size", type=int, default=8, help="images per forward")
+    add_int8_flags(p, "batches of 8 leading images")
     p.add_argument("--device", default="cuda",
                    help="torch device; 'cpu' runs on the CPU")
     return p
 
 
 def main(argv: list[str] | None = None) -> None:
-    args = parse_args_or_raise(build_parser(), argv, LATER_FLAGS, LATER_WHERE)
+    args = build_parser().parse_args(argv)
     if not (args.output_disp or args.output_depth or args.save_npy):
         args.output_depth = True
 
@@ -82,12 +84,26 @@ def main(argv: list[str] | None = None) -> None:
         img = read_image(f).astype(np.float32) / 255.0
         return resize_area(img, args.img_height, args.img_width)
 
+    def batch(chunk: list[Path]) -> torch.Tensor:
+        x = torch.from_numpy(np.stack([load(f) for f in chunk])).to(dev)
+        return normalize_images(x, mean, std)
+
+    net = model
+    if args.int8:
+        from supervised_dispnet_tpu_torch.ops.quant import QuantizedModel, calibrate_conv_ranges
+
+        n_calib = min(8 * max(1, args.calib_batches), len(files))
+        with torch.inference_mode():
+            calib = [batch(files[c:min(c + 8, n_calib)]) for c in range(0, n_calib, 8)]
+        ranges = calibrate_conv_ranges(model, calib, percentile=args.percentile)
+        print(f"int8 PTQ: calibrated {len(ranges)} ranges on {n_calib} images")
+        net = QuantizedModel(model, ranges).to(dev)
+
     B = max(1, args.batch_size)
     for c0 in range(0, len(files), B):
         chunk = files[c0:c0 + B]
-        x = torch.from_numpy(np.stack([load(f) for f in chunk])).to(dev)
         with torch.inference_mode():
-            out = model(normalize_images(x, mean, std))
+            out = net(batch(chunk))
         direct_depth = not isinstance(out, list)  # FCRN: metric depth
         preds = (out if direct_depth else out[0])[..., 0].cpu().numpy()
         for f, pred in zip(chunk, preds):

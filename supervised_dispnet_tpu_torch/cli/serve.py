@@ -14,8 +14,10 @@ port's codec and area-resized to the configured size; the answer is the
 (H, W) float32 depth map as an ``.npy`` payload. Another format, or a
 frame smaller than the network input, answers 400; a full queue 503.
 GET /healthz: "ok" once the buckets are warm. ``--port 0`` takes a free
-port; the line "serving on :<port>" names it. Runs on the card unless
-``--device cpu`` is given.
+port; the line "serving on :<port>" names it. ``--int8 --calib-dir <dir>``
+serves the int8 path, calibrated on the folder's first 8 images (sorted by
+name, decoded as requests are). Runs on the card unless ``--device cpu`` is
+given.
 """
 
 from __future__ import annotations
@@ -23,14 +25,9 @@ from __future__ import annotations
 import argparse
 import io
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from pathlib import Path
 
 import numpy as np
-
-from supervised_dispnet_tpu_torch.cli import parse_args_or_raise
-from supervised_dispnet_tpu_torch.serving import INT8_WHERE
-
-# flags of the JAX example's int8 serving, which a later slice ports
-LATER_FLAGS = frozenset(("--int8", "--calib-dir"))
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -44,6 +41,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--img-width", type=int, default=416)
     p.add_argument("--buckets", default="1,8,64")
     p.add_argument("--max-wait-ms", type=float, default=2.0)
+    p.add_argument("--int8", action="store_true",
+                   help="the int8 path (ops/quant.py); needs --calib-dir")
+    p.add_argument("--calib-dir", default=None,
+                   help="--int8: folder of PNG images for range calibration (the first 8)")
     p.add_argument("--imagenet-normalization", action="store_true")
     p.add_argument("--port", type=int, default=8502)
     p.add_argument("--device", default="cuda",
@@ -71,17 +72,25 @@ def make_server(argv: list[str] | None = None):
     """Build, warm and start the service and bind the HTTP server; returns
     (server, service). The caller runs ``server.serve_forever()`` and, when
     done, ``server.server_close()`` and ``service.stop()``."""
-    args = parse_args_or_raise(build_parser(), argv, LATER_FLAGS, INT8_WHERE)
+    parser = build_parser()
+    args = parser.parse_args(argv)
 
     from supervised_dispnet_tpu_torch.serving import DepthService, ServingConfig
 
     H, W = args.img_height, args.img_width
+    calibration = None
+    if args.int8:
+        if not args.calib_dir:
+            parser.error("--int8 requires --calib-dir")
+        files = sorted(Path(args.calib_dir).iterdir())[:8]
+        calibration = [decode(f.read_bytes(), H, W) for f in files]
+        print(f"calibrating int8 on {len(calibration)} images", flush=True)
     cfg = ServingConfig(img_height=H, img_width=W,
                         buckets=tuple(int(b) for b in args.buckets.split(",")),
-                        max_wait_ms=args.max_wait_ms,
+                        max_wait_ms=args.max_wait_ms, int8=args.int8,
                         imagenet_normalization=args.imagenet_normalization)
     service = DepthService.from_checkpoint(args.pretrained, args.network, cfg,
-                                           device=args.device)
+                                           device=args.device, calibration=calibration)
     print("warming buckets", cfg.buckets, "...", flush=True)
     service.warmup()
     service.start()

@@ -12,7 +12,11 @@ network input (416x128), normalise, forward in full fp32, depth = 1 / disp
 the GT size, then Garg crop, depth caps, optional median scaling and the
 Eigen errors (``kitti_eval/depth_evaluation_utils.py``). A host thread
 decodes and resizes batch k + 1 while the card runs batch k, and the
-readback lags one batch. Runs on the card unless ``--device cpu`` is given.
+readback lags one batch. ``--int8`` serves the int8 path
+(``ops/quant.py``), calibrated lazily as the JAX CLI does: the first
+``--calib-batches`` eval batches set the ranges (at ``--percentile``) and
+are served in fp32 but the last, then every batch runs int8. Runs on the
+card unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -24,11 +28,6 @@ from pathlib import Path
 
 import numpy as np
 
-from supervised_dispnet_tpu_torch.cli import parse_args_or_raise
-
-# JAX CLI flags of the int8 serving path, which a later slice ports
-LATER_FLAGS = frozenset(("--int8", "--calib-batches", "--percentile"))
-LATER_WHERE = "ROADMAP.md Queue A5 (int8 serving)"
 METRICS = ("abs_rel", "sq_rel", "rmse", "rmse_log", "a1", "a2", "a3")
 
 
@@ -58,9 +57,22 @@ def build_parser() -> argparse.ArgumentParser:
                    help="disp_res* / disp_vgg_bn: each decoder stage's 2x upsample "
                         "composed into the conv after it (ops/fused_upconv.py; "
                         "exact, same checkpoint); height and width divisible by 32")
+    add_int8_flags(p, "leading eval batches")
     p.add_argument("--device", default="cuda",
                    help="torch device; 'cpu' runs on the CPU")
     return p
+
+
+def add_int8_flags(p: argparse.ArgumentParser, what: str) -> None:
+    """The JAX CLIs' int8 flags."""
+    p.add_argument("--int8", action="store_true",
+                   help="serve the int8 path (ops/quant.py: the int8 conv kernel on "
+                        "the card), calibrated on the --calib-batches first batches")
+    p.add_argument("--calib-batches", type=int, default=1,
+                   help=f"--int8: number of {what} to calibrate the activation ranges on")
+    p.add_argument("--percentile", type=float, default=None,
+                   help="--int8: calibrate to this percentile of |activation| "
+                        "(e.g. 99.9) instead of its max")
 
 
 def load_model(path: str | Path, network: str, head: str = "disp", num_bins: int = 64,
@@ -91,7 +103,7 @@ def norm_stats(imagenet: bool) -> tuple[tuple, tuple]:
 def main(argv: list[str] | None = None) -> dict[str, float]:
     """Evaluate; prints the metric table and returns ``evaluate_depth``'s
     dict."""
-    args = parse_args_or_raise(build_parser(), argv, LATER_FLAGS, LATER_WHERE)
+    args = build_parser().parse_args(argv)
 
     import torch
 
@@ -111,6 +123,23 @@ def main(argv: list[str] | None = None) -> dict[str, float]:
                        args.fused_upsample, dev)
     bins = DepthBins(num_bins=args.num_bins, max_depth=args.max_depth)
     mean, std = (torch.tensor(v, device=dev) for v in norm_stats(args.imagenet_normalization))
+    calib: list[torch.Tensor] = []
+    net = [model]  # the int8 twin once calibrated
+
+    def network(x: torch.Tensor):
+        if not args.int8 or net[0] is not model:
+            return net[0](x)
+        calib.append(x)
+        if len(calib) < max(1, args.calib_batches):
+            return model(x)
+        from supervised_dispnet_tpu_torch.ops.quant import (
+            QuantizedModel, calibrate_conv_ranges)
+
+        ranges = calibrate_conv_ranges(model, calib, percentile=args.percentile)
+        print(f"int8 PTQ: calibrated {len(ranges)} ranges on {len(calib)} batches")
+        calib.clear()
+        net[0] = QuantizedModel(model, ranges).to(dev)
+        return net[0](x)
 
     def forward(imgs: np.ndarray):
         """Queue the batch's upload, forward and readback on the card without
@@ -122,7 +151,7 @@ def main(argv: list[str] | None = None) -> dict[str, float]:
             x = x.pin_memory()
         x = normalize_images(x.to(dev, non_blocking=True), mean, std)
         with torch.inference_mode():
-            depth = output_depth(model(x), bins if args.classification else None)
+            depth = output_depth(network(x), bins if args.classification else None)
         if dev.type != "cuda":
             return depth, None
         host = torch.empty(depth.shape, dtype=depth.dtype, pin_memory=True)

@@ -33,7 +33,7 @@ from pathlib import Path
 from supervised_dispnet_tpu_torch.cli import parse_args_or_raise
 
 # JAX CLI flags of features that later slices port (see ROADMAP.md)
-_LATER_FLAGS = frozenset(("--qat", "--spatial-shards"))
+_LATER_FLAGS = frozenset(("--spatial-shards",))
 REMAT_CHOICES = ("full", "conv")
 
 
@@ -114,6 +114,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--accum-steps", type=int, default=1,
                    help="> 1: average the gradients of this many micro-batches into "
                         "one optimizer update (effective batch k * batch-size)")
+    p.add_argument("--qat", action="store_true",
+                   help="quantization-aware training: fake-quantize every quantizable "
+                        "conv of the disp net, so that the checkpoint serves --int8 "
+                        "with less quality loss than post-training calibration")
     p.add_argument("--remat", choices=REMAT_CHOICES, default=None,
                    help="activation checkpointing of the disp net's stages (and the "
                         "self-supervised photometric terms): 'full' (also bare "
@@ -258,7 +262,7 @@ def main(argv: list[str] | None = None):
         smooth_loss_weight=args.smooth_loss_weight,
         imagenet_normalization=args.imagenet_normalization, hue=args.hue,
         bf16=args.bf16, remat=args.remat or False, ema_decay=args.ema_decay,
-        accum_steps=args.accum_steps, debug_nans=args.debug_nans,
+        accum_steps=args.accum_steps, debug_nans=args.debug_nans, qat=args.qat,
         profile_steps=args.profile_steps, resume=args.resume,
         half_res_photo=args.half_res_photo, stochastic_photo=args.stochastic_photo,
         training_output_freq=args.training_output_freq, loader=args.loader,

@@ -3,6 +3,13 @@ flax-matched BatchNorm, the initialisers, the compute dtype and activation
 checkpointing. The port of ``supervised_dispnet_tpu/models/common.py``
 (NCHW inside the modules).
 
+**Quantization.** Inside ``ops/quant.py::fake_quant_methods`` (QAT) every
+quantizable conv runs fake-quantized: the trunk ``Conv2d``, ``FloatConv2d``
+(a float32 conv outside the trunk's compute dtype), the fused decoder stage
+(``fused_upsample_conv``) and FCRN's unpool conv read ``FAKE_QUANT``. The
+int8 twin of a model (``ops/quant.py::QuantizedModel``) puts its own modules
+where ``fused_upsample_conv`` and FCRN's unpool conv take a conv.
+
 The blocks are ``nn.Sequential``s so that their layers carry the reference
 state dict's names (``conv{i}.0`` / ``.2``, ``upconv{i}.0``, ``iconv{i}.0``).
 
@@ -67,6 +74,16 @@ def _add_bias(y: torch.Tensor, bias: torch.Tensor | None) -> torch.Tensor:
     return y if bias is None else y + bias[:, None, None]
 
 
+# the QAT context of ops/quant.py::fake_quant_methods, None outside it
+FAKE_QUANT: contextvars.ContextVar = contextvars.ContextVar("FAKE_QUANT", default=None)
+
+
+def fake_quant_context(conv: nn.Module):
+    """The active QAT context when it fake-quantizes ``conv``, else None."""
+    fq = FAKE_QUANT.get()
+    return fq if fq is not None and fq.applies(conv) else None
+
+
 class _ComputeParams:
     """A trunk conv's ``compute_dtype`` (None: float32) and its weight and
     bias in it."""
@@ -85,10 +102,22 @@ class Conv2d(_ComputeParams, nn.Conv2d):
     in it (flax ``nn.Conv(dtype=)``). Its state dict is ``nn.Conv2d``'s."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        fq = fake_quant_context(self)
+        if fq is not None:
+            return fq.conv(self, x)
         if self.compute_dtype is None:
             return super().forward(x)
         weight, bias = self.compute_params()
         return _add_bias(self._conv_forward(x.to(self.compute_dtype), weight, None), bias)
+
+
+class FloatConv2d(nn.Conv2d):
+    """A float32 conv outside the trunk's compute dtype (the bin-logit heads,
+    FCRN) that QAT fake-quantizes. Its state dict is ``nn.Conv2d``'s."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        fq = fake_quant_context(self)
+        return fq.conv(self, x) if fq is not None else super().forward(x)
 
 
 class ConvTranspose2d(_ComputeParams, nn.ConvTranspose2d):
@@ -218,19 +247,23 @@ def _save_convs(ctx, op, *args, **kwargs) -> CheckpointPolicy:
 
 
 @contextlib.contextmanager
-def _recomputing(inner: contextlib.AbstractContextManager):
+def _recomputing(inner: contextlib.AbstractContextManager, fake_quant):
+    """The recomputation's context: ``inner``, flagged as recomputing, under
+    the QAT context the forward ran in (the backward runs outside it)."""
     token = _RECOMPUTING.set(True)
+    fq_token = FAKE_QUANT.set(fake_quant)
     try:
         with inner:
             yield
     finally:
+        FAKE_QUANT.reset(fq_token)
         _RECOMPUTING.reset(token)
 
 
 def _contexts(policy: str):
     fwd, rec = ((contextlib.nullcontext(), contextlib.nullcontext()) if policy == "full"
                 else create_selective_checkpoint_contexts(_save_convs))
-    return fwd, _recomputing(rec)
+    return fwd, _recomputing(rec, FAKE_QUANT.get())
 
 
 def remat_policy(remat: bool | str | None) -> str | None:
@@ -287,12 +320,18 @@ def fused_upsample_conv(conv: Conv2d, h: torch.Tensor, skip: torch.Tensor | None
     upsample (``ops/fused_upconv.py::upconv2x_fused``): the weight's input
     channels are split as the concat lays them out, ``h``'s first. The
     decoder stage ``stage`` must upsample exactly 2x. In the conv's compute
-    dtype, as the JAX stage casts (taps composed in that dtype)."""
+    dtype, as the JAX stage casts (taps composed in that dtype). Under QAT the
+    fake-quantized stage; in the int8 twin its int8 stage."""
     if tuple(target_hw) != (2 * h.shape[2], 2 * h.shape[3]):
         raise ValueError(
             "fused_upsample needs an exact 2x stage geometry (input height "
             f"and width divisible by 32); decoder stage {stage} upsamples "
             f"{tuple(h.shape[2:])} to {tuple(target_hw)}")
+    if not isinstance(conv, nn.Conv2d):  # the int8 twin's stage (ops/quant.py)
+        return conv(h, skip)
+    fq = fake_quant_context(conv)
+    if fq is not None:
+        return fq.fused(conv, h, skip)
     ch = h.shape[1]
     weight, bias = conv.compute_params()
     y = upconv2x_fused(h.to(weight.dtype), weight[:, :ch])

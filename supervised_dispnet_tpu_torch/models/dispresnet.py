@@ -19,7 +19,8 @@ coarser scales s = 2..4).
 The encoder and decoder take the trunk's compute dtype (``--bf16``); the
 disparity and bin-logit heads compute in float32, as the JAX heads do.
 Remat (``models/common.py::set_remat``) checkpoints the encoder's blocks,
-as the JAX model does.
+as the JAX model does. ``fold_bn=True`` is the BN-folded serving form of the
+encoder (``utils/fold_bn.py::fold_dispresnet`` makes its state dict).
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from supervised_dispnet_tpu_torch.models.common import (
-    Conv2d, DispHead, fused_upsample_conv, xavier_uniform_)
+    Conv2d, DispHead, FloatConv2d, fused_upsample_conv, xavier_uniform_)
 from supervised_dispnet_tpu_torch.models.resnet import ResNetEncoder
 from supervised_dispnet_tpu_torch.ops.resize import interpolate_bilinear
 
@@ -47,12 +48,12 @@ class DispResNet(nn.Module):
 
     def __init__(self, encoder_depth: int = 18, head: str = "disp",
                  num_bins: int = 64, multiscale_classification: bool = False,
-                 fused_upsample: bool = False,
+                 fused_upsample: bool = False, fold_bn: bool = False,
                  generator: torch.Generator | None = None):
         super().__init__()
         if head not in ("disp", "classification"):
             raise ValueError(f"unknown DispResNet head {head!r}")
-        self.encoder = ResNetEncoder(encoder_depth)
+        self.encoder = ResNetEncoder(encoder_depth, fold_bn=fold_bn)
         enc_ch = self.encoder.feature_channels
         for i in range(4, -1, -1):
             in_ch = enc_ch[4] if i == 4 else DEC_PLANES[i + 1]
@@ -70,7 +71,7 @@ class DispResNet(nn.Module):
         else:
             for s in range(4 if multiscale_classification else 1):
                 self.add_module(_class_head_name(s), nn.Sequential(
-                    nn.Conv2d(DEC_PLANES[s], num_bins, 3, padding=1)))
+                    FloatConv2d(DEC_PLANES[s], num_bins, 3, padding=1)))
         self.init_weights(generator)
 
     def init_weights(self, generator: torch.Generator | None = None) -> None:

@@ -33,14 +33,21 @@ import torch.nn.functional as F
 from torch import nn
 
 from supervised_dispnet_tpu_torch.models.common import (
-    BatchNorm2d, remat_call, xavier_uniform_)
+    BatchNorm2d, FloatConv2d, fake_quant_context, remat_call, xavier_uniform_)
 from supervised_dispnet_tpu_torch.models.resnet import ResNetEncoder
 from supervised_dispnet_tpu_torch.ops.resize import interpolate_bilinear
 
 
-def unpool_conv(x: torch.Tensor, conv: nn.Conv2d) -> torch.Tensor:
+def unpool_conv(x: torch.Tensor, conv: nn.Module) -> torch.Tensor:
     """``conv`` (5x5, padding 2) of x's 2x zero-stuffed unpool (x at even
-    rows and columns): (B, Cin, H, W) -> (B, Cout, 2H, 2W)."""
+    rows and columns): (B, Cin, H, W) -> (B, Cout, 2H, 2W). Under QAT the
+    fake-quantized conv; the int8 twin's module (``ops/quant.py``) computes
+    it itself."""
+    if not isinstance(conv, nn.Conv2d):
+        return conv(x)
+    fq = fake_quant_context(conv)
+    if fq is not None:
+        return fq.unpool(conv, x)
     w = conv.weight.flip(2, 3).transpose(0, 1)
     return F.conv_transpose2d(x, w, conv.bias, stride=2, padding=2, output_padding=1)
 
@@ -52,11 +59,11 @@ class UpProjection(nn.Module):
 
     def __init__(self, in_ch: int, out_ch: int):
         super().__init__()
-        self.conv1 = nn.Conv2d(in_ch, out_ch, 5, padding=2)
+        self.conv1 = FloatConv2d(in_ch, out_ch, 5, padding=2)
         self.bn1 = BatchNorm2d(out_ch)
-        self.conv2 = nn.Conv2d(out_ch, out_ch, 3, padding=1)
+        self.conv2 = FloatConv2d(out_ch, out_ch, 3, padding=1)
         self.bn2 = BatchNorm2d(out_ch)
-        self.conv3 = nn.Conv2d(in_ch, out_ch, 5, padding=2)
+        self.conv3 = FloatConv2d(in_ch, out_ch, 5, padding=2)
         self.bn3 = BatchNorm2d(out_ch)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -72,12 +79,12 @@ class FCRN(ResNetEncoder):
     def __init__(self, generator: torch.Generator | None = None):
         super().__init__(50)
         ch = self.feature_channels[-1] // 2
-        self.conv2 = nn.Conv2d(2 * ch, ch, 1)
+        self.conv2 = FloatConv2d(2 * ch, ch, 1)
         self.bn2 = BatchNorm2d(ch)
         for n in range(1, 5):
             self.add_module(f"up{n}", UpProjection(ch, ch // 2))
             ch //= 2
-        self.conv3 = nn.Conv2d(ch, 1, 3, padding=1)
+        self.conv3 = FloatConv2d(ch, 1, 3, padding=1)
         self.init_weights(generator)
 
     def init_weights(self, generator: torch.Generator | None = None) -> None:
@@ -90,8 +97,11 @@ class FCRN(ResNetEncoder):
                     xavier_uniform_(m, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        H, W = x.shape[1], x.shape[2]
         h = super().forward(x.permute(0, 3, 1, 2).contiguous())[-1]
+        return self.decode(h, x.shape[1], x.shape[2])
+
+    def decode(self, h: torch.Tensor, H: int, W: int) -> torch.Tensor:
+        """The decoder: stride-32 features (B, 2048, h, w) -> (B, H, W, 1)."""
         h = self.bn2(self.conv2(h))
         for n in range(1, 5):
             h = remat_call(self.remat, getattr(self, f"up{n}"), h)

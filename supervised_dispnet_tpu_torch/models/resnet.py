@@ -7,6 +7,10 @@ flax-matched (``models/common.py::BatchNorm2d``). Works in NCHW. The convs
 and BNs take the trunk's compute dtype (``models/common.py``); with
 ``remat`` each block is checkpointed (the JAX encoder's ``remat_wrap`` of
 its blocks).
+
+``fold_bn=True`` is the serving form with BN absorbed into the convs
+(``utils/fold_bn.py``), as the JAX encoder's field: every conv carries a
+bias and every BN is the identity.
 """
 
 from __future__ import annotations
@@ -19,23 +23,29 @@ from supervised_dispnet_tpu_torch.models.common import (
     BatchNorm2d, Conv2d, kaiming_normal_, remat_call)
 
 
-def _downsample(in_ch: int, out_ch: int, stride: int) -> nn.Sequential | None:
+def _norm(ch: int, fold_bn: bool) -> nn.Module:
+    """BatchNorm, or the identity where BN is folded into the conv."""
+    return nn.Identity() if fold_bn else BatchNorm2d(ch)
+
+
+def _downsample(in_ch: int, out_ch: int, stride: int,
+                fold_bn: bool = False) -> nn.Sequential | None:
     if stride == 1 and in_ch == out_ch:
         return None
-    return nn.Sequential(Conv2d(in_ch, out_ch, 1, stride, bias=False),
-                         BatchNorm2d(out_ch))
+    return nn.Sequential(Conv2d(in_ch, out_ch, 1, stride, bias=fold_bn),
+                         _norm(out_ch, fold_bn))
 
 
 class BasicBlock(nn.Module):
     expansion = 1
 
-    def __init__(self, in_ch: int, features: int, stride: int = 1):
+    def __init__(self, in_ch: int, features: int, stride: int = 1, fold_bn: bool = False):
         super().__init__()
-        self.conv1 = Conv2d(in_ch, features, 3, stride, 1, bias=False)
-        self.bn1 = BatchNorm2d(features)
-        self.conv2 = Conv2d(features, features, 3, 1, 1, bias=False)
-        self.bn2 = BatchNorm2d(features)
-        self.downsample = _downsample(in_ch, features, stride)
+        self.conv1 = Conv2d(in_ch, features, 3, stride, 1, bias=fold_bn)
+        self.bn1 = _norm(features, fold_bn)
+        self.conv2 = Conv2d(features, features, 3, 1, 1, bias=fold_bn)
+        self.bn2 = _norm(features, fold_bn)
+        self.downsample = _downsample(in_ch, features, stride, fold_bn)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         identity = x if self.downsample is None else self.downsample(x)
@@ -47,16 +57,16 @@ class BasicBlock(nn.Module):
 class Bottleneck(nn.Module):
     expansion = 4
 
-    def __init__(self, in_ch: int, features: int, stride: int = 1):
+    def __init__(self, in_ch: int, features: int, stride: int = 1, fold_bn: bool = False):
         super().__init__()
         out_ch = features * self.expansion
-        self.conv1 = Conv2d(in_ch, features, 1, bias=False)
-        self.bn1 = BatchNorm2d(features)
-        self.conv2 = Conv2d(features, features, 3, stride, 1, bias=False)
-        self.bn2 = BatchNorm2d(features)
-        self.conv3 = Conv2d(features, out_ch, 1, bias=False)
-        self.bn3 = BatchNorm2d(out_ch)
-        self.downsample = _downsample(in_ch, out_ch, stride)
+        self.conv1 = Conv2d(in_ch, features, 1, bias=fold_bn)
+        self.bn1 = _norm(features, fold_bn)
+        self.conv2 = Conv2d(features, features, 3, stride, 1, bias=fold_bn)
+        self.bn2 = _norm(features, fold_bn)
+        self.conv3 = Conv2d(features, out_ch, 1, bias=fold_bn)
+        self.bn3 = _norm(out_ch, fold_bn)
+        self.downsample = _downsample(in_ch, out_ch, stride, fold_bn)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         identity = x if self.downsample is None else self.downsample(x)
@@ -75,24 +85,27 @@ RESNET_SPECS = {
 
 class ResNetEncoder(nn.Module):
     """Returns 5 feature maps at strides 2, 4, 8, 16, 32 (finest first).
-    ``remat`` ("full", "conv" or None) checkpoints each block."""
+    ``remat`` ("full", "conv" or None) checkpoints each block; ``fold_bn``
+    gives the BN-folded serving form."""
 
     remat: str | None = None
 
-    def __init__(self, depth: int = 18):
+    def __init__(self, depth: int = 18, fold_bn: bool = False):
         super().__init__()
         if depth not in RESNET_SPECS:
             raise NotImplementedError(f"ResNet-{depth} is not ported; depths "
                                       f"{sorted(RESNET_SPECS)}")
         block_cls, stage_sizes, self.feature_channels = RESNET_SPECS[depth]
-        self.conv1 = Conv2d(3, 64, 7, 2, 3, bias=False)
-        self.bn1 = BatchNorm2d(64)
+        self.depth = depth
+        self.fold_bn = fold_bn
+        self.conv1 = Conv2d(3, 64, 7, 2, 3, bias=fold_bn)
+        self.bn1 = _norm(64, fold_bn)
         in_ch = 64
         for stage, (n_blocks, width) in enumerate(zip(stage_sizes, (64, 128, 256, 512))):
             blocks = []
             for b in range(n_blocks):
                 stride = 2 if (b == 0 and stage > 0) else 1
-                blocks.append(block_cls(in_ch, width, stride))
+                blocks.append(block_cls(in_ch, width, stride, fold_bn))
                 in_ch = width * block_cls.expansion
             self.add_module(f"layer{stage + 1}", nn.Sequential(*blocks))
 

@@ -99,26 +99,38 @@ def _border_conv(strips: torch.Tensor, taps: torch.Tensor) -> torch.Tensor:
     return out.view(B, 2, -1, L - 2)
 
 
-def upconv2x_fused(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
-    """Exactly ``F.conv2d(interpolate_bilinear(x, 2H, 2W), weight, padding=1)``
-    without the upsampled tensor.
-
-    x: (B, Cin, H, W) half-resolution input; weight: (Cout, Cin, 3, 3).
-    Returns (B, Cout, 2H, 2W). Bias and activation are the caller's."""
-    xp = F.pad(x, (1, 1, 1, 1), mode="replicate")
-    y = lhs_dilated_conv_ps(xp, compose_upsample_kernel(weight))
-
-    # the phantom rows (top, bottom) and columns (left, right) that the 3x3
-    # conv's zero padding zeroed, each through its kernel row or column. The
-    # four corner phantoms lie in a phantom row and a phantom column: the
-    # rows' strips leave them out, so that each is subtracted once (JAX's
-    # corner restore, folded into the strips)
+def border_corrections(x: torch.Tensor, weight: torch.Tensor
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """What the composed conv adds at the 1-pixel output border over the
+    3x3 conv of the upsample: the phantom rows (B, 2, Cout, 2W: top, bottom)
+    and columns (B, 2, Cout, 2H: left, right), each through its kernel row or
+    column. The four corner phantoms lie in a phantom row and a phantom
+    column: the rows' strips leave them out, so that each is subtracted once
+    (JAX's corner restore, folded into the strips)."""
     rows = _border_conv(
         _strip_up_phantom(torch.cat([x[:, :, :1], x[:, :, -1:]], dim=2), ends=False),
         weight[:, :, ::2])
     cols = _border_conv(
         _strip_up_phantom(torch.cat([x[..., :1], x[..., -1:]], dim=3).transpose(2, 3)),
         weight[..., ::2].transpose(2, 3))
+    return rows, cols
+
+
+def upconv2x_fused(x: torch.Tensor, weight: torch.Tensor,
+                   composed_kernel: torch.Tensor | None = None) -> torch.Tensor:
+    """Exactly ``F.conv2d(interpolate_bilinear(x, 2H, 2W), weight, padding=1)``
+    without the upsampled tensor.
+
+    x: (B, Cin, H, W) half-resolution input; weight: (Cout, Cin, 3, 3).
+    ``composed_kernel`` (Cout, Cin, 6, 6), if given, replaces
+    ``compose_upsample_kernel(weight)`` in the main conv (QAT passes the
+    quantize-dequantized composed kernel, as the JAX function takes it); the
+    border corrections use ``weight``. Returns (B, Cout, 2H, 2W). Bias and
+    activation are the caller's."""
+    xp = F.pad(x, (1, 1, 1, 1), mode="replicate")
+    kc = compose_upsample_kernel(weight) if composed_kernel is None else composed_kernel
+    y = lhs_dilated_conv_ps(xp, kc)
+    rows, cols = border_corrections(x, weight)
     y[:, :, 0].sub_(rows[:, 0])
     y[:, :, -1].sub_(rows[:, 1])
     y[..., 0].sub_(cols[:, 0])

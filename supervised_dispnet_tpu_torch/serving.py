@@ -9,6 +9,11 @@ of ``supervised_dispnet_tpu/serving.py``.
   queue, waiting at most ``max_wait_ms`` for co-arriving requests.
 - **One forward per micro-batch**, normalisation on the card, in full fp32
   under ``torch.inference_mode()``; the host stacks, pads and reads back.
+- **int8** (``ServingConfig(int8=True)``): the calibration images, each a
+  batch of its own, normalised as served, set every conv's activation range
+  (``ops/quant.py::calibrate_conv_ranges``, at ``percentile``); the forward
+  is then the model's int8 twin (``ops/quant.py::QuantizedModel``), whose
+  convolutions run the int8 kernel (``csrc/int8_conv.cu``) on the card.
 
 Every accepted request is answered: a cancelled future is skipped without
 stopping the dispatcher, and ``submit`` either enqueues a request ahead of
@@ -41,9 +46,6 @@ import torch
 from supervised_dispnet_tpu_torch.data.augment import (
     HALF_MEAN, HALF_STD, IMAGENET_MEAN, IMAGENET_STD, normalize_images)
 from supervised_dispnet_tpu_torch.utils.device import resolve_device, set_fp32_math
-
-INT8_WHERE = "ROADMAP.md Queue A5 (int8 serving)"
-
 
 @dataclass(frozen=True)
 class ServingConfig:
@@ -86,14 +88,17 @@ def _stack(images: Sequence[np.ndarray]) -> np.ndarray:
 class DepthService:
     """Depth inference service with dynamic micro-batching over ``model``, a
     registry network with its weights loaded (see ``from_checkpoint``), on
-    ``device``."""
+    ``device``. ``int8`` serving needs ``calibration``: images as
+    ``submit`` takes them."""
 
     def __init__(self, model: torch.nn.Module, config: ServingConfig = ServingConfig(),
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda",
+                 calibration: Sequence[np.ndarray] | None = None):
         if not config.buckets or list(config.buckets) != sorted(set(config.buckets)):
             raise ValueError(f"buckets must be sorted unique: {config.buckets}")
-        if config.int8:
-            raise NotImplementedError(f"int8 serving is not ported yet; see {INT8_WHERE}")
+        if config.int8 and not calibration:
+            raise ValueError("int8 serving needs calibration images "
+                             "(DepthService(..., calibration=[...]))")
         self.config = config
         self.device = resolve_device(device)
         set_fp32_math()
@@ -102,6 +107,17 @@ class DepthService:
                      else (HALF_MEAN, HALF_STD))
         self._mean = torch.tensor(mean, device=self.device)
         self._std = torch.tensor(std, device=self.device)
+        self.ranges: dict[str, float] | None = None
+        self._net = self.model
+        if config.int8:
+            from supervised_dispnet_tpu_torch.ops.quant import (
+                QuantizedModel, calibrate_conv_ranges)
+
+            with torch.inference_mode():
+                batches = [self._normalized(self._prep(np.asarray(c))) for c in calibration]
+            self.ranges = calibrate_conv_ranges(self.model, batches,
+                                                percentile=config.percentile)
+            self._net = QuantizedModel(self.model, self.ranges).to(self.device)
         self._queue: queue.Queue[_Request | None] = queue.Queue(maxsize=config.max_queue)
         self._thread: threading.Thread | None = None
         # held while submit() enqueues and while stop() closes the door, so
@@ -112,10 +128,11 @@ class DepthService:
     @classmethod
     def from_checkpoint(cls, path: str | Path, network: str = "disp_res_50",
                         config: ServingConfig = ServingConfig(),
-                        device: str | torch.device = "cuda") -> DepthService:
+                        device: str | torch.device = "cuda",
+                        calibration: Sequence[np.ndarray] | None = None) -> DepthService:
         """Build from a ``.pth.tar`` (the eval CLI's loader). ``fcrn`` turns
         on ``direct_depth``; ``fused_upsample`` applies to disp_res* and
-        disp_vgg_bn."""
+        disp_vgg_bn; ``calibration`` as for the constructor."""
         from supervised_dispnet_tpu_torch.cli.test_disp import load_model
 
         device = resolve_device(device)
@@ -123,7 +140,7 @@ class DepthService:
         model = load_model(path, network, fused_upsample=fused, device=device)
         if network == "fcrn" and not config.direct_depth:
             config = dataclasses.replace(config, direct_depth=True)
-        return cls(model, config, device=device)
+        return cls(model, config, device=device, calibration=calibration)
 
     # -- host-side preprocessing --------------------------------------------
 
@@ -142,16 +159,21 @@ class DepthService:
             images = images.astype(np.float32, copy=False)
         return np.ascontiguousarray(images)
 
-    def _forward(self, x: np.ndarray) -> np.ndarray:
-        """One padded batch through the model: (b, H, W) depth on the host."""
+    def _normalized(self, x: np.ndarray) -> torch.Tensor:
+        """A prepared batch on the device, in [0, 1], normalised."""
         t = torch.from_numpy(x)
         if self.device.type == "cuda":
             t = t.pin_memory()
+        t = t.to(self.device, non_blocking=True).to(torch.float32)
+        if x.dtype == np.uint8:
+            t = t / 255.0
+        return normalize_images(t, self._mean, self._std)
+
+    def _forward(self, x: np.ndarray) -> np.ndarray:
+        """One padded batch through the model (or its int8 twin): (b, H, W)
+        depth on the host."""
         with torch.inference_mode():
-            t = t.to(self.device, non_blocking=True).to(torch.float32)
-            if x.dtype == np.uint8:
-                t = t / 255.0
-            out = self.model(normalize_images(t, self._mean, self._std))
+            out = self._net(self._normalized(x))
             out = (out[0] if isinstance(out, list) else out)[..., 0]
             if not self.config.direct_depth:
                 out = 1.0 / out.clamp(min=1e-6)

@@ -68,6 +68,16 @@ def output_depth(out, bins: DepthBins | None = None) -> torch.Tensor:
     return out[..., 0]
 
 
+def _qat(fake_quant: bool) -> contextlib.AbstractContextManager:
+    """QAT's fake-quant context (``ops/quant.py::fake_quant_methods``), or
+    none."""
+    if not fake_quant:
+        return contextlib.nullcontext()
+    from supervised_dispnet_tpu_torch.ops.quant import fake_quant_methods
+
+    return fake_quant_methods()
+
+
 def _not_ported(**options) -> None:
     for name, value in options.items():
         if value:
@@ -219,9 +229,10 @@ def make_supervised_train_step(
     when the model returns a list. A model that returns one (B, H, W, 1)
     tensor (FCRN) predicts depth, and the loss takes it at its one scale.
     BerHu and the CE on the card run the CUDA kernels, on the CPU their
-    plain versions.
+    plain versions. ``fake_quant`` (QAT) runs the model's forward under
+    ``ops/quant.py::fake_quant_methods``.
     """
-    _not_ported(fake_quant=fake_quant, mesh=mesh)
+    _not_ported(mesh=mesh)
     classification = loss_name == "classification"
     if not classification and loss_name not in SUPERVISED_LOSSES:
         raise ValueError(f"unknown supervised loss {loss_name!r}; choices: "
@@ -253,7 +264,9 @@ def make_supervised_train_step(
         mask = (depth_gt > 0) & (depth_gt < max_depth)
         model.train()
         optimizer.zero_grad(set_to_none=True)
-        loss = compute_loss(model(imgs[:, 0]), depth_gt, mask)
+        with _qat(fake_quant):
+            out = model(imgs[:, 0])
+        loss = compute_loss(out, depth_gt, mask)
         loss.backward()
         update(loss)
         return {"loss": loss.detach()}
@@ -302,10 +315,10 @@ def make_selfsup_train_step(
 
     batch: {'tgt': (B, H, W, 3), 'ref_imgs': (B, R, H, W, 3), uint8 or
     [0, 1] float; 'intrinsics': (B, 3, 3)}, on the models' device. The warps
-    run the CUDA kernels on the card and the plain sampler on the CPU. QAT
-    (``fake_quant``) is not ported and raises; see ROADMAP.md.
+    run the CUDA kernels on the card and the plain sampler on the CPU.
+    ``fake_quant`` (QAT) fake-quantizes the disparity net's forward; the pose
+    net stays float, as in the JAX step.
     """
-    _not_ported(fake_quant=fake_quant)
     if photo_generator is None:
         photo_generator = torch.Generator().manual_seed(0)
     with_exp = mask_weight > 0
@@ -325,7 +338,8 @@ def make_selfsup_train_step(
         disp_model.train()
         pose_model.train()
         optimizer.zero_grad(set_to_none=True)
-        disps = disp_model(tgt)[:num_scales]
+        with _qat(fake_quant):
+            disps = disp_model(tgt)[:num_scales]
         exp_masks, pose = pose_model(tgt, refs)
         exp_masks = exp_masks[:num_scales] if with_exp else None
         photo, _ = photometric_reconstruction_loss(

@@ -92,6 +92,8 @@ class TrainerConfig:
     ema_decay: float = 0.0  # > 0: an EMA shadow that validation uses
     accum_steps: int = 1  # > 1: k micro-batches an optimizer update
     debug_nans: bool = False  # raise at the first non-finite loss or gradient
+    qat: bool = False  # quantization-aware training: fake-quant every
+    #   quantizable conv of the disp net (ops/quant.py::fake_quant_methods)
     profile_steps: int = 0  # > 0: trace this many steady-state steps
     resume: bool = False  # continue save_path's last checkpoint exactly
     half_res_photo: bool = False  # the photometric pyramid one octave down
@@ -213,7 +215,7 @@ class Trainer:
                 mask_weight=cfg.mask_loss_weight if cfg.with_exp_mask else 0.0,
                 smooth_weight=cfg.smooth_loss_weight, rotation_mode=cfg.rotation_mode,
                 padding_mode=cfg.padding_mode, aug=self.aug, ema_decay=cfg.ema_decay,
-                accum_steps=cfg.accum_steps, debug_nans=cfg.debug_nans,
+                accum_steps=cfg.accum_steps, debug_nans=cfg.debug_nans, fake_quant=cfg.qat,
                 remat_photo=bool(cfg.remat), half_res_photo=cfg.half_res_photo,
                 stochastic_photo=cfg.stochastic_photo,
                 photo_generator=self.photo_generator)
@@ -225,7 +227,8 @@ class Trainer:
             self._train_step = make_supervised_train_step(
                 self.model, self.optimizer, cfg.loss, bins=self.bins, aug=self.aug,
                 max_depth=cfg.max_depth, ema_decay=cfg.ema_decay,
-                accum_steps=cfg.accum_steps, debug_nans=cfg.debug_nans)
+                accum_steps=cfg.accum_steps, debug_nans=cfg.debug_nans,
+                fake_quant=cfg.qat)
         # accumulation, the EMA shadow and the NaN check
         self.update = self._train_step.update
 

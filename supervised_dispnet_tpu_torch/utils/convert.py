@@ -10,10 +10,17 @@ the port loads either with ``load_state_dict(strict=True)``.
 PoseExpNet, under the names ``utils/checkpoint.py::convert_dispnet`` and
 ``convert_pose_exp_net`` read; ``disp_vgg_bn_from_jax`` and ``fcrn_from_jax``
 for DispVggBN and FCRN, under the names ``utils/convert_models.py::
-convert_network`` reads.
+convert_network`` reads. ``dispresnet_folded_from_jax`` takes the tree of
+the JAX ``utils/fold_bn.py::fold_dispresnet`` into ``DispResNet(fold_bn=True)``.
+
+``flax_paths`` maps the port's module names to the JAX modules' flax paths
+(``encoder/layer1_0/conv1``, ``upconv3_1/Conv_0``), the keys of the int8
+calibration ranges (``ops/quant.py``); ``port_name`` is its inverse.
 """
 
 from __future__ import annotations
+
+import re
 
 import numpy as np
 import torch
@@ -104,6 +111,12 @@ def dispresnet_from_jax(params: dict, batch_stats: dict, depth: int = 18,
     ``DispResNetNameMap.bin_head`` / ``bin_head_scale``."""
     sd: dict[str, torch.Tensor] = {}
     _put_resnet(sd, "encoder.", params["encoder"], batch_stats["encoder"], depth)
+    _put_dispresnet_decoder(sd, params, head, multiscale_classification)
+    return sd
+
+
+def _put_dispresnet_decoder(sd: dict, params: dict, head: str,
+                            multiscale_classification: bool) -> None:
     for i in range(5):
         _put(sd, f"upconv{i}.0", params[f"upconv{i}_0"]["Conv_0"])
         _put(sd, f"iconv{i}.0", params[f"upconv{i}_1"]["Conv_0"])
@@ -115,7 +128,6 @@ def dispresnet_from_jax(params: dict, batch_stats: dict, depth: int = 18,
     else:
         for s in range(4):
             _put(sd, f"predict_disp{s + 1}.0", params[f"disp_head{s}"]["Conv_0"])
-    return sd
 
 
 def dispnet_from_jax(params: dict) -> dict[str, torch.Tensor]:
@@ -194,3 +206,116 @@ def fcrn_from_jax(params: dict, batch_stats: dict) -> dict[str, torch.Tensor]:
             _put_bn(sd, f"up{i + 1}.bn{ours}", up[bn], ups[bn])
     _put(sd, "conv3", params["conv3"])
     return sd
+
+
+def _put_resnet_folded(sd: dict, prefix: str, ep: dict, depth: int) -> None:
+    """A folded JAX ``ResNetEncoder``'s params (every conv with a bias, no BN)
+    under ``prefix``, in torchvision's layout."""
+    _put(sd, f"{prefix}conv1", ep["conv1"])
+    block_cls, stage_sizes, _ = RESNET_SPECS[depth]
+    n_convs = 3 if block_cls.expansion == 4 else 2
+    for stage, n_blocks in enumerate(stage_sizes):
+        for b in range(n_blocks):
+            jp = ep[f"layer{stage + 1}_{b}"]
+            block = f"{prefix}layer{stage + 1}.{b}"
+            for c in range(1, n_convs + 1):
+                _put(sd, f"{block}.conv{c}", jp[f"conv{c}"])
+            if "downsample_conv" in jp:
+                _put(sd, f"{block}.downsample.0", jp["downsample_conv"])
+
+
+def dispresnet_folded_from_jax(params: dict, depth: int = 18, head: str = "disp",
+                               multiscale_classification: bool = False
+                               ) -> dict[str, torch.Tensor]:
+    """The params of JAX ``fold_dispresnet(params, batch_stats)`` (a
+    ``DispResNet(fold_bn=True)`` tree) -> the port's ``DispResNet(fold_bn=True)``
+    state dict: the encoder's convs with their folded biases, the decoder and
+    heads as ``dispresnet_from_jax`` names them."""
+    sd: dict[str, torch.Tensor] = {}
+    _put_resnet_folded(sd, "encoder.", params["encoder"], depth)
+    _put_dispresnet_decoder(sd, params, head, multiscale_classification)
+    return sd
+
+
+def _resnet_rules(port: str, flax: str) -> list:
+    p = re.escape(port)
+    return [
+        (p + r"conv1", lambda m: f"{flax}conv1"),
+        (p + r"layer(\d)\.(\d+)\.conv(\d)", lambda m: f"{flax}layer{m[1]}_{m[2]}/conv{m[3]}"),
+        (p + r"layer(\d)\.(\d+)\.downsample\.0",
+         lambda m: f"{flax}layer{m[1]}_{m[2]}/downsample_conv"),
+        (p + r"layer(\d)\.(\d+)", lambda m: f"{flax}layer{m[1]}_{m[2]}"),
+    ]
+
+
+def _vgg_conv(m: re.Match) -> str | None:
+    idx = int(m[1])
+    for s, idxs in enumerate(VGG16_BN_CONV_IDX):
+        if idx in idxs:
+            return f"stage{s}/conv{idxs.index(idx)}"
+    return None
+
+
+# port module name (fullmatch) -> flax path, by network class name
+_FLAX_RULES = {
+    "DispResNet": _resnet_rules("encoder.", "encoder/") + [
+        (r"upconv(\d)\.0", lambda m: f"upconv{m[1]}_0/Conv_0"),
+        (r"iconv(\d)\.0", lambda m: f"upconv{m[1]}_1/Conv_0"),
+        (r"predict_disp(\d)\.0", lambda m: f"disp_head{int(m[1]) - 1}/Conv_0"),
+        (r"predict_class\.0", lambda m: "bin_head"),
+        (r"predict_class(\d)\.0", lambda m: f"bin_head{int(m[1]) - 1}"),
+    ],
+    "DispNetS": [
+        (r"conv(\d)\.0", lambda m: f"conv{m[1]}/conv_a/Conv_0"),
+        (r"conv(\d)\.2", lambda m: f"conv{m[1]}/conv_b/Conv_0"),
+        (r"conv(\d)", lambda m: f"conv{m[1]}"),
+        (r"upconv(\d)\.0", lambda m: f"upconv{m[1]}/ConvTranspose_0"),
+        (r"iconv(\d)\.0", lambda m: f"iconv{m[1]}/Conv_0"),
+        (r"predict_disp(\d)\.0", lambda m: f"predict_disp{m[1]}/Conv_0"),
+    ],
+    "DispVggBN": [
+        (r"encoder\.features\.(\d+)", _vgg_conv),
+        (r"upconv(\d)\.0", lambda m: f"up{m[1]}_0"),
+        (r"iconv(\d)\.0", lambda m: f"up{m[1]}_1"),
+        (r"predict_disp(\d)\.0", lambda m: f"disp_head{int(m[1]) - 1}/Conv_0"),
+    ],
+    "FCRN": _resnet_rules("", "encoder/") + [
+        (r"conv2", lambda m: "conv2"),
+        (r"up(\d)\.conv1", lambda m: f"up{int(m[1]) - 1}/conv_a"),
+        (r"up(\d)\.conv2", lambda m: f"up{int(m[1]) - 1}/conv_a2"),
+        (r"up(\d)\.conv3", lambda m: f"up{int(m[1]) - 1}/conv_b"),
+        (r"up(\d)", lambda m: f"up{int(m[1]) - 1}"),
+        (r"conv3", lambda m: "conv3"),
+    ],
+}
+
+
+def flax_paths(model: torch.nn.Module) -> dict[str, str]:
+    """{port module name: the JAX module's flax path} for the convs (and the
+    ResNet blocks, DispNetS's stages, FCRN's up-projections) of a registry
+    network: ``encoder.layer1.0.conv1`` -> ``encoder/layer1_0/conv1``,
+    ``iconv3.0`` -> ``upconv3_1/Conv_0``, FCRN's ``up1.conv3`` ->
+    ``up0/conv_b``. The int8 calibration's range keys are these paths."""
+    rules = _FLAX_RULES.get(type(model).__name__)
+    if rules is None:
+        raise ValueError(f"no flax path table for {type(model).__name__}")
+    out = {}
+    for name, _ in model.named_modules():
+        for pattern, fn in rules:
+            m = re.fullmatch(pattern, name)
+            if m is not None:
+                path = fn(m)
+                if path is not None:
+                    out[name] = path
+                break
+    return out
+
+
+def port_name(model: torch.nn.Module, path: str) -> str:
+    """The port module name of flax ``path`` (a range key's ``::`` suffix
+    dropped); ``KeyError`` if the network has no such module."""
+    base = path.split("::")[0]
+    for name, p in flax_paths(model).items():
+        if p == base:
+            return name
+    raise KeyError(f"{type(model).__name__} has no module at flax path {base!r}")

@@ -265,14 +265,20 @@ def test_selfsup_models_interchange_with_reference_layout(B, H, W):
 
 
 def test_registry_serves_dispnet():
-    """The registry's DispNetS; serving it in int8, still to port, raises
-    naming the roadmap."""
+    """The registry's DispNetS served in int8: without calibration images
+    the service refuses it, as JAX's does; with them it serves the int8
+    twin (``tests/test_torch_int8_serving.py`` holds it against JAX's)."""
+    from supervised_dispnet_tpu_torch.ops.quant import QuantizedModel
     from supervised_dispnet_tpu_torch.serving import DepthService, ServingConfig
 
     model = get_disp_net("dispnet", device="cpu")
     assert isinstance(model, DispNetS)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DepthService(model, ServingConfig(int8=True), device="cpu")
+    cfg = ServingConfig(img_height=32, img_width=64, buckets=(1,), int8=True)
+    with pytest.raises(ValueError, match="calibration"):
+        DepthService(model, cfg, device="cpu")
+    calib = [np.random.default_rng(0).integers(0, 256, (32, 64, 3), dtype=np.uint8)]
+    svc = DepthService(model, cfg, device="cpu", calibration=calib)
+    assert isinstance(svc._net, QuantizedModel) and svc.predict(calib[0]).shape == (1, 32, 64)
 
 
 def test_registry_refuses_fused_upsample_on_dispnet():

@@ -167,22 +167,28 @@ def test_card_math_is_full_fp32_unless_tf32_is_asked_for(tf32_flags):
 
 
 # Cases whose flags a slice has ported point at a feature still unported,
-# beside the ported flag where one fits, under the ids they had.
+# beside the ported flag where one fits, under the ids they had. With the
+# int8 path and QAT ported, --spatial-shards is the flag that raises.
 @pytest.mark.parametrize("cli,argv,err", [
-    ("train", ["--spatial-shards", "2"], "--spatial-shards"), ("train", ["--qat"], "--qat"),
+    ("train", ["--spatial-shards", "2"], "--spatial-shards"),
+    pytest.param("train", ["--qat", "--spatial-shards", "2"], "--spatial-shards",
+                 id="train-argv1---qat"),
     pytest.param("train", ["--loss", "selfsup", "--stochastic-photo", "2", "--loader", "grain"],
                  "--loader grain", id="train-argv2---stochastic-photo"),
-    pytest.param("train", ["--loss", "selfsup", "--half-res-photo", "--qat"], "--qat",
+    pytest.param("train", ["--loss", "selfsup", "--half-res-photo", "--qat",
+                           "--spatial-shards", "2"], "--spatial-shards",
                  id="train-argv3---half-res-photo"),
-    ("test_disp", ["--int8"], "--int8"),
-    pytest.param("test_disp", ["--calib-batches", "4"], "--calib-batches",
-                 id="train-argv5---loader"),
+    pytest.param("train", ["--fused-upsample", "--spatial-shards", "4"], "--spatial-shards",
+                 id="test_disp-argv4---int8"),
+    pytest.param("train", ["--loader", "device", "--qat", "--spatial-shards", "2"],
+                 "--spatial-shards", id="train-argv5---loader"),
     pytest.param("train", ["--loader", "device", "--steps-per-dispatch", "2",
                            "--spatial-shards", "2"], "--spatial-shards",
                  id="train-argv6---steps-per-dispatch"),
-    pytest.param("train", ["--training-output-freq", "5", "--qat"], "--qat",
-                 id="train-argv7---training-output-freq"),
-    pytest.param("test_disp", ["--percentile", "99.9"], "--percentile", id="train-argv8--j"),
+    pytest.param("train", ["--training-output-freq", "5", "--qat", "--spatial-shards", "2"],
+                 "--spatial-shards", id="train-argv7---training-output-freq"),
+    pytest.param("train", ["-j", "2", "--qat", "--spatial-shards", "2"], "--spatial-shards",
+                 id="train-argv8--j"),
 ])
 def test_unported_cli_choices_raise(tmp_path, cli, argv, err):
     if cli == "train":

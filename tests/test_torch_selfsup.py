@@ -124,12 +124,13 @@ def test_scale_intrinsics_matches_jax():
                                 {"batch_refs": True}, {"stochastic_photo": 2}])
 def test_unported_photometric_arms_raise(kw):
     """Every photometric arm is ported (``test_torch_photometric_arms.py``
-    holds them); what the self-supervised step still refuses, beside each
-    of them, is QAT (``fake_quant``)."""
+    holds them), and so is QAT (``fake_quant``, ``test_torch_qat.py``): the
+    self-supervised step builds with it beside each arm, where it raised
+    until QAT was ported."""
     from supervised_dispnet_tpu_torch.models import DispNetS, PoseExpNet
     from supervised_dispnet_tpu_torch.training.train_step import make_selfsup_train_step
 
     disp, pose = DispNetS(), PoseExpNet()
     opt = torch.optim.Adam([*disp.parameters(), *pose.parameters()])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_selfsup_train_step(disp, pose, opt, fake_quant=True, **kw)
+    step = make_selfsup_train_step(disp, pose, opt, fake_quant=True, **kw)
+    assert callable(step) and step.update is not None

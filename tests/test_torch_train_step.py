@@ -145,11 +145,12 @@ def test_eval_step_matches_jax(one_step):
                                    err_msg=k)
 
 
-@pytest.mark.parametrize("kw", [{"mesh": "data"}, {"fake_quant": True, "ema_decay": 0.99},
-                                {"fake_quant": True}])
+@pytest.mark.parametrize("kw", [{"mesh": "data"},
+                                {"mesh": "data", "fake_quant": True, "ema_decay": 0.99},
+                                {"mesh": "data", "fake_quant": True}])
 def test_unported_step_options_raise(kw):
-    """The JAX step's options still to port (a mesh, QAT) raise, also beside
-    ported ones (EMA)."""
+    """The JAX step's option still to port (a mesh) raises, also beside
+    ported ones (EMA, and QAT since it was ported)."""
     model = DispResNet(18)
     opt = torch.optim.Adam(model.parameters())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
