@@ -187,11 +187,14 @@ import dataclasses
 import io
 import json
 import math
+import re
+import shutil
 import subprocess
 import sys
 import tempfile
 import time
 from pathlib import Path
+from typing import Any, NamedTuple
 
 import numpy as np
 
@@ -2379,8 +2382,6 @@ def options_run_phase(torch, tmp: Path, device: str = "cuda") -> dict:
     is handed float32 under ``--bf16``; the second run continues the first's
     run directory, step, EMA shadow and generator (its checkpoint, copied
     before the resume, restores to the first run's end state)."""
-    import shutil
-
     from supervised_dispnet_tpu_torch.cli import train as train_cli
     from supervised_dispnet_tpu_torch.models import get_disp_net
     from supervised_dispnet_tpu_torch.training.trainer import Trainer
@@ -3950,28 +3951,47 @@ INT8_BATCHES = (8, 64)
 INT8_LINE_CASE = ((8, 8, 26, 256), 3)
 
 
-def _int8_bound(torch, xq, w, geom, out, residual, k) -> tuple[float, str]:
-    """The conv's least time: each input (activations, packed weights,
-    scales, residual) read once and the output written once at 3.35 TB/s,
-    against the MACs its taps need at the int8 tensor-core peak (an
-    lhs-dilated conv's dilation holes need none)."""
-    n_bytes = (xq.numel() + w.numel() + 8 * w.shape[0] + out.numel() * out.element_size()
-               + (0 if residual is None else residual.numel() * residual.element_size()))
-    holes = geom.lhs_dilation[0] * geom.lhs_dilation[1]
-    n_ops = 2.0 * out.shape[0] * out.shape[1] * out.shape[2] * w.shape[0] * k / holes
+class Int8Call(NamedTuple):
+    """One int8 conv call of a forward, as ``ops/quant.py`` made it: the
+    tensors the kernel gets (x padded to the plan's channels, the weight
+    packed for its phases) and the conv's true input channels ``cin``."""
+
+    xq: Any
+    w: Any
+    geom: Any
+    mult: Any
+    bias: Any
+    residual: Any
+    kw: dict
+    cin: int
+
+
+def _int8_bound(torch, c: Int8Call, out) -> tuple[float, str]:
+    """The conv's least time, from its own work: the input's true channels
+    (not the plan's padding), each read once, the weight's true taps, the
+    scales, the residual and the output written once at 3.35 TB/s, against
+    the MACs of its taps (an lhs-dilated conv's dilation holes need none) at
+    the int8 tensor-core peak."""
+    B, H, W, _ = c.xq.shape
+    cout = c.w.shape[0]
+    k = c.geom.kh * c.geom.kw * c.cin
+    n_bytes = (B * H * W * c.cin + cout * k + 8 * cout + out.numel() * out.element_size()
+               + (0 if c.residual is None else c.residual.numel() * c.residual.element_size()))
+    holes = c.geom.lhs_dilation[0] * c.geom.lhs_dilation[1]
+    n_ops = 2.0 * out.shape[0] * out.shape[1] * out.shape[2] * cout * k / holes
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / INT8_TOPS
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
 def _record_int8_calls(torch, twin, x) -> list:
-    """The int8 conv calls of one forward of ``twin``: (x, w, geom, mult,
-    bias, residual, keywords)."""
+    """The int8 conv calls of one forward of ``twin`` (``Int8Call``s)."""
     from supervised_dispnet_tpu_torch.ops import quant as pq
 
+    cins = {m.w.data_ptr(): m.cin for m in twin.modules() if isinstance(m, pq._QWeights)}
     calls, real = [], pq.int8_conv
 
     def record(xq, w, geom, mult, bias, residual=None, **kw):
-        calls.append((xq, w, geom, mult, bias, residual, kw))
+        calls.append(Int8Call(xq, w, geom, mult, bias, residual, kw, cins[w.data_ptr()]))
         return real(xq, w, geom, mult, bias, residual=residual, **kw)
 
     pq.int8_conv = record
@@ -3983,14 +4003,13 @@ def _record_int8_calls(torch, twin, x) -> list:
     return calls
 
 
-def _same_conv_fp(torch, xq, w, geom, dtype):
+def _same_conv_fp(torch, x_shape, cout, geom, dtype):
     """cuDNN's float conv of the int8 conv's shape (beside the kernel, timed
-    only): NCHW ``dtype`` input and weight; an lhs-dilated conv as the
-    transposed conv that computes it."""
+    only): NCHW ``dtype`` input (the true channels) and weight; an
+    lhs-dilated conv as the transposed conv that computes it."""
     import torch.nn.functional as F
 
-    B, H, W, C = xq.shape
-    cout = w.shape[0]
+    B, H, W, C = x_shape
     x = torch.randn(B, C, H, W, device=CARD, dtype=dtype)
     pt, pb, pl, pr = geom.padding
     if geom.lhs_dilation != (1, 1):
@@ -4003,38 +4022,69 @@ def _same_conv_fp(torch, xq, w, geom, dtype):
                             dilation=geom.rhs_dilation)
 
 
-def _kernel_us(torch, fn, name: str, tries: int = 3) -> float | None:
-    """Device µs a launch of the kernel ``name`` from the profiler, profiled
-    again up to ``tries`` times while it shows no event (it can drop them);
-    None (not measured) if it never does."""
+def call_device_us(torch, fn, reps: int = 5, tries: int = 3) -> float | None:
+    """Device µs of one call of ``fn``: every device event of the call
+    summed (``torch.profiler``, ``reps`` calls), profiled again up to
+    ``tries`` times while it shows none (it can drop them); None (not
+    measured) if it never does."""
     for _ in range(tries):
-        us, n = device_us(torch, fn, [name], reps=5)[name]
+        us, n = device_us(torch, fn, [""], reps=reps)[""]
         if n > 0:
-            return us
+            return us * n
     return None
 
 
-def int8_conv_cases(torch, calls: list, card: str) -> list:
-    """Each distinct conv of ``calls`` (shape, geometry, epilogue) on the
-    card: the kernel's int32 accumulators bit-equal to the plain version's,
-    its output equal (ReLU, none, float outputs) or within one code (ELU),
-    then its time (CUDA events over 20 calls, host included; device µs from
-    the profiler), the plain version's, ``torch._int_mm`` over the im2col
-    matrix's shape (K and N padded to multiples of 8; the im2col itself is
-    not timed), cuDNN's fp32 (TF32 off) and bf16 conv of the shape, and the
-    bound."""
+SPLIT_CHECK_K = 9216  # the deep-K convs: one of them is held without split-K too
+
+
+def conv_key(c: Int8Call) -> tuple:
+    """What makes an int8 conv distinct: shapes, geometry, epilogue."""
+    variant = (c.kw.get("out", "f32"), c.kw.get("act", "none"),
+               None if c.residual is None else str(c.residual.dtype))
+    return tuple(c.xq.shape), c.cin, tuple(c.w.shape), c.geom, variant
+
+
+def split_k_agrees(torch, c: Int8Call, acc, out) -> bool:
+    """The conv launched with its plan's split-K (``acc``, ``out``) and in
+    one K slice: the int32 accumulators and the outputs bit-equal."""
     from supervised_dispnet_tpu_torch.ops.cuda import int8_conv as ic
 
-    seen, rows = set(), []
-    for xq, w, geom, mult, bias, residual, kw in calls:
-        variant = (kw.get("out", "f32"), kw.get("act", "none"),
-                   None if residual is None else str(residual.dtype))
-        key = (tuple(xq.shape), tuple(w.shape), geom, variant)
+    kw = c.kw
+    acc1 = ic.launch(c.xq, c.w, c.mult, c.bias, None, c.geom, 0, 3, 0, 0.0, 1.0, splits=1)
+    out1 = ic.launch(c.xq, c.w, c.mult, c.bias, c.residual, c.geom,
+                     ic.ACTS[kw.get("act", "none")], ic.OUTS[kw.get("out", "f32")],
+                     ic._res_mode(c.residual, kw.get("res_before_bias", False)),
+                     float(kw.get("res_scale", 0.0)), float(kw.get("out_scale", 1.0)),
+                     splits=1)
+    torch.cuda.synchronize()
+    return torch.equal(acc1, acc) and torch.equal(out1, out)
+
+
+def int8_conv_cases(torch, calls: list, card: str) -> list:
+    """Each distinct conv of ``calls`` (``Int8Call``s: shape, geometry,
+    epilogue) on the card: the kernel's int32 accumulators bit-equal to the
+    plain reference's (``conv_acc_plain``: the zero-stuffed conv over the
+    true channels, no phases), its output equal to the plain version's
+    (ReLU, none, float outputs) or within one code (ELU); the first deep-K
+    conv (K >= ``SPLIT_CHECK_K``) that the plan splits along K also
+    bit-equal launched in one slice; then its time (CUDA events over 20
+    calls, host included; device µs of a call: every device event of it,
+    from the profiler), the plain version's, ``torch._int_mm`` over the
+    im2col matrix's shape (K and N padded to multiples of 8; the im2col
+    itself is not timed), cuDNN's fp32 (TF32 off) and bf16 conv of the
+    shape, and the bound (``_int8_bound``)."""
+    from supervised_dispnet_tpu_torch.ops.cuda import int8_conv as ic
+
+    seen, rows, split_checked = set(), [], False
+    for c in calls:
+        key = conv_key(c)
         if key in seen:
             continue
         seen.add(key)
+        xq, w, geom, mult, bias, residual, kw, cin = c
+        variant = key[4]
         acc = ic.int8_conv(xq, w, geom, mult, bias, out="s32")
-        acc_plain = ic.conv_acc_plain(xq, w, geom)
+        acc_plain = ic.conv_acc_plain(xq[..., :cin].contiguous(), w, geom)
         out = ic.int8_conv(xq, w, geom, mult, bias, residual=residual, **kw)
         plain = ic.int8_conv_plain(xq, w, geom, mult, bias, residual=residual, **kw)
         torch.cuda.synchronize()
@@ -4046,17 +4096,26 @@ def int8_conv_cases(torch, calls: list, card: str) -> list:
         limit = 1.0 if codes and variant[1] == "elu" else 0.0
         if err > limit:
             raise AssertionError(f"int8 conv {key}: output off the plain version by {err}")
-        k = geom.kh * geom.kw * xq.shape[3]
-        row = {"x": list(xq.shape), "cout": w.shape[0], "k": k, "geom": geom.as_list(),
-               "out": variant[0], "act": variant[1], "residual": variant[2],
-               "max_abs_err": err, "card": card}
-        row["bound_ms"], row["bound_by"] = _int8_bound(torch, xq, w, geom, out, residual, k)
+        k = geom.kh * geom.kw * cin
+        pl = ic.plan(tuple(xq.shape), geom, w.shape[0])
+        row = {"x": [*xq.shape[:3], cin], "cp": pl.cp, "cout": w.shape[0], "k": k,
+               "geom": geom.as_list(), "out": variant[0], "act": variant[1],
+               "residual": variant[2], "max_abs_err": err,
+               "plan": {"bn": pl.bn, "bm": pl.bm, "splits": pl.splits,
+                        "phases": len(pl.phases), "tiles": pl.tiles},
+               "card": card}
+        if pl.splits > 1 and k >= SPLIT_CHECK_K and not split_checked:
+            if not split_k_agrees(torch, c, acc, out):
+                raise AssertionError(f"int8 conv {key}: split-K ({pl.splits} slices) differs "
+                                     "from one slice")
+            row["split_k_equal_one_slice"] = split_checked = True
+        row["bound_ms"], row["bound_by"] = _int8_bound(torch, c, out)
 
         def fn(xq=xq, w=w, geom=geom, mult=mult, bias=bias, residual=residual, kw=kw):
             return ic.int8_conv(xq, w, geom, mult, bias, residual=residual, **kw)
 
         row["ms"] = cuda_ms(torch, fn, reps=20, warmup=3)
-        row["device_us"] = _kernel_us(torch, fn, "int8_conv_kernel")
+        row["device_us"] = call_device_us(torch, fn)
         row["plain_ms"] = cuda_ms(torch, lambda: ic.int8_conv_plain(
             xq, w, geom, mult, bias, residual=residual, **kw), reps=3, warmup=1)
         M = out.shape[0] * out.shape[1] * out.shape[2]
@@ -4066,9 +4125,12 @@ def int8_conv_cases(torch, calls: list, card: str) -> list:
                           device=CARD, dtype=torch.int8).t()
         row["library_ms"] = cuda_ms(torch, lambda: torch._int_mm(a, b), reps=20, warmup=3)
         for dt, name in ((torch.float32, "cudnn_fp32_ms"), (torch.bfloat16, "cudnn_bf16_ms")):
-            row[name] = cuda_ms(torch, _same_conv_fp(torch, xq, w, geom, dt), reps=20,
-                                warmup=3)
+            row[name] = cuda_ms(torch, _same_conv_fp(torch, row["x"], w.shape[0], geom, dt),
+                                reps=20, warmup=3)
         rows.append(row)
+    if not split_checked:
+        raise AssertionError("no deep-K conv that the plan splits along K was held in one "
+                             "slice")
     return rows
 
 
@@ -4098,27 +4160,119 @@ def _int8_model(torch, network: str, fused: bool, ckpt: str | None):
     return get_disp_net(network, fused_upsample=fused, seed=13, device=CARD).eval()
 
 
+def int8_forced_cpu(torch, twin, cpu_twin, x):
+    """The CPU twin's forward of ``x`` with each int8 conv given the card
+    twin's int8 input and residual for that call (the card's calls, in
+    order), so that a code that a float op's rounding moved on one device
+    does not spread; returns (that forward's output, for each call the int8
+    input's elements that differ from the CPU's own and the largest
+    difference, and the residual's largest relative difference)."""
+    from supervised_dispnet_tpu_torch.ops import quant as pq
+
+    card = _record_int8_calls(torch, twin, x)
+    parts, real = [], pq.int8_conv
+
+    def forced(xq, w, geom, mult, bias, residual=None, **kw):
+        c = card[len(parts)]
+        xc = c.xq.cpu()
+        d = (xq.int() - xc.int()).abs()
+        part = {"differ": int((d > 0).sum()), "max": int(d.max()), "of": d.numel()}
+        rc = None
+        if residual is not None:
+            rc = c.residual.cpu()
+            rd = (residual.float() - rc.float()).abs() / rc.float().abs().clamp_min(1e-6)
+            part["residual_max_rel"] = float(rd.max())
+        parts.append(part)
+        return real(xc, w, geom, mult, bias, residual=rc, **kw)
+
+    pq.int8_conv = forced
+    try:
+        with torch.inference_mode():
+            out = cpu_twin(x.cpu())
+    finally:
+        pq.int8_conv = real
+    if len(parts) != len(card):
+        raise AssertionError(f"the CPU twin ran {len(parts)} int8 convs, the card's {len(card)}")
+    return out, parts
+
+
+def int8_parting(torch, twin, cpu_twin, x) -> dict:
+    """Where the card's and the CPU's int8 twins part on ``x``: whether every
+    int8 conv the card ran equals the plain version on its own inputs, and
+    the first call whose int8 input or residual differs between the two
+    devices (index, elements that differ, the largest difference)."""
+    from supervised_dispnet_tpu_torch.ops import quant as pq
+    from supervised_dispnet_tpu_torch.ops.cuda import int8_conv as ic
+
+    card = _record_int8_calls(torch, twin, x)
+    cpu, real = [], pq.int8_conv
+
+    def record(xq, w, geom, mult, bias, residual=None, **kw):
+        cpu.append((xq, residual))
+        return real(xq, w, geom, mult, bias, residual=residual, **kw)
+
+    pq.int8_conv = record
+    try:
+        with torch.inference_mode():
+            cpu_twin(x.cpu())
+    finally:
+        pq.int8_conv = real
+    exact, first = True, None
+    for i, (c, (xq, r)) in enumerate(zip(card, cpu)):
+        with torch.inference_mode():
+            y = ic.int8_conv(c.xq, c.w, c.geom, c.mult, c.bias, residual=c.residual, **c.kw)
+            want = ic.int8_conv_plain(c.xq, c.w, c.geom, c.mult, c.bias, residual=c.residual,
+                                      **c.kw)
+        exact &= torch.equal(y, want)
+        if first is None:
+            for name, a, b in (("x", c.xq, xq), ("residual", c.residual, r)):
+                if a is not None and not torch.equal(a.cpu(), b):
+                    d = (a.cpu().float() - b.float()).abs()
+                    first = {"call": i, "tensor": name, "differ": int((d > 0).sum()),
+                             "of": d.numel(), "max": float(d.max())}
+                    break
+    return {"calls": len(card), "kernel_equals_plain": exact, "first_part": first}
+
+
+def forward_device_us(torch, fwd, reps: int = 3) -> dict:
+    """Device µs of one forward: its int8 conv kernels' summed, their
+    launches, and every device event's summed (``torch.profiler``)."""
+    got = device_us(torch, fwd, ["int8_conv_kernel", ""], reps=reps)
+    (conv_us, n), (all_us, n_all) = got["int8_conv_kernel"], got[""]
+    return {"int8_conv_us": conv_us * n, "int8_conv_launches": n, "all_us": all_us * n_all}
+
+
 def int8_networks_phase(torch, card: str, ckpt: str | None) -> tuple[dict, list]:
     """``quantized_apply``'s int8 twin of each network of ``INT8_NETWORKS``
     at 128x416, its BN statistics those of 8 normalised random frames
     (``_bn_to_batch``), calibrated on them: its int8 conv
     launches a forward at B=8 (one a quantized conv: ``n_int8_convs``),
     the finest output against the CPU twin's (same weights and ranges, B=1;
-    FCRN's depth with a floor of 1e-3 of its largest): median rel <= 1e-3
-    and 99th percentile <= 2e-2, the CPU tests' limits, max <= 0.25. The
-    int8 convs agree bit for bit (``int8_conv_cases``), but the float ops
-    between them (bilinear resizes, the per-conv path's BN, the fused
-    stage's border corrections, the bf16 heads) round otherwise on the two
-    devices, and a value within an ulp of a rounding half moves its code by
-    one, which a briefly trained net carries to a pixel's disparity by up to
-    several percent (seen: 7.6% on one pixel of the unfused DispResNet-50,
-    median 0). FCRN's float BNs between its int8 convs carry
-    such flips through four up-projections to a ReLU'd depth: held to its
-    median and finiteness alone, as JAX holds a random-init FCRN's int8
-    forward (seen: p99 1e-6 to 1.4e-2, one pixel 0.89). img/s at
+    FCRN's depth with a floor of 1e-3 of its largest). The int8 convs agree
+    bit for bit (``int8_conv_cases``), but the float ops between them
+    (bilinear resizes, the per-conv path's BN, the fused stage's border
+    corrections, the bf16 heads) round otherwise on the two devices, and a
+    value within an ulp of a rounding half moves its code by one, which a
+    briefly trained net spreads from a low-resolution stage to a share of
+    its pixels (seen: p99 4.9% and 24% of the pixels above 1e-3 on the
+    unfused DispResNet-50, 2.9% on the fused one, where the border
+    corrections' float32 residual moved codes; the tree with the earlier
+    one-phase ``mma.sync`` kernel gives the same numbers on the same
+    checkpoint, ``scripts/int8_card_vs_cpu.py``). So
+    the output is held end to end against the CPU twin to its median rel <=
+    1e-3 and finiteness (its 99th percentile and largest are reported), and
+    against the CPU twin fed, at each int8 conv, the card's int8 input and
+    residual (``int8_forced_cpu``): median rel <= 1e-3, 99th percentile <=
+    2e-2, the CPU tests' limits, max <= 0.25; and each such input's codes
+    within one of the CPU's own, on at most 1e-3 of its elements. FCRN's float
+    BNs between its int8 convs carry a moved code through four
+    up-projections to a ReLU'd depth: its output held to its median and
+    finiteness alone, as JAX holds a random-init FCRN's int8 forward (seen:
+    p99 1e-6 to 1.4e-2, one pixel 0.89). img/s at
     B=8 and 64 (CUDA
     events) beside the float32 forward (TF32 off) and, for the networks with
-    a bf16 trunk, the bf16 one; peak memory of a forward at B=64 beside
+    a bf16 trunk, the bf16 one; the int8 forward's device µs at each batch
+    (``forward_device_us``); peak memory of a forward at B=64 beside
     fp32's (above what the card held before it). Returns
     (results, the int8 conv calls of DispResNet-50 fused and unfused, FCRN's
     unpool convs and DispNetS's ragged-channel ones)."""
@@ -4154,25 +4308,35 @@ def int8_networks_phase(torch, card: str, ckpt: str | None) -> tuple[dict, list]
         if network == "disp_res_50":
             calls += mine
         elif network == "fcrn":
-            calls += [c for c in mine if c[2].lhs_dilation == (2, 2)]
+            calls += [c for c in mine if c.geom.lhs_dilation == (2, 2)]
         elif network == "dispnet":
-            calls += [c for c in mine if c[0].shape[3] % 4]
+            calls += [c for c in mine if c.cin % 4]
         # the card against the CPU: the same twin's weights and ranges, B=1
         cpu_twin = pq.QuantizedModel(copy.deepcopy(model).cpu(), ranges)
         with torch.inference_mode():
             got = twin(frames[8][:1])
             want = cpu_twin(frames[8][:1].cpu())
+        forced, parts = int8_forced_cpu(torch, twin, cpu_twin, frames[8][:1])
         g = (got[0] if isinstance(got, list) else got).float().cpu().numpy()
-        wt = (want[0] if isinstance(want, list) else want).float().numpy()
-        floor = 1e-3 * np.abs(wt).max() if network == "fcrn" else 1e-6
-        rel = np.abs(g - wt) / np.maximum(np.abs(wt), floor)
-        res["card_vs_cpu"] = {"median_rel": float(np.median(rel)),
-                              "p99_rel": float(np.percentile(rel, 99)),
-                              "max_rel": float(rel.max()),
-                              "share_above_1e-3": float((rel > 1e-3).mean())}
-        tails = network == "fcrn" or (np.percentile(rel, 99) <= 2e-2 and rel.max() <= 0.25)
-        if not (np.isfinite(g).all() and np.median(rel) <= 1e-3 and tails):
-            raise AssertionError(f"int8 {label}: card vs CPU {res['card_vs_cpu']}")
+        for key, ref in (("card_vs_cpu", want), ("card_vs_cpu_forced", forced)):
+            wt = (ref[0] if isinstance(ref, list) else ref).float().numpy()
+            floor = 1e-3 * np.abs(wt).max() if network == "fcrn" else 1e-6
+            rel = np.abs(g - wt) / np.maximum(np.abs(wt), floor)
+            res[key] = {"median_rel": float(np.median(rel)),
+                        "p99_rel": float(np.percentile(rel, 99)),
+                        "max_rel": float(rel.max()),
+                        "share_above_1e-3": float((rel > 1e-3).mean())}
+        moved = {"codes": sum(p["differ"] for p in parts),
+                 "largest": max(p["max"] for p in parts),
+                 "largest_share": max(p["differ"] / p["of"] for p in parts)}
+        res["card_vs_cpu_forced"]["moved"] = moved
+        fc, uf = res["card_vs_cpu_forced"], res["card_vs_cpu"]
+        tails = network == "fcrn" or (fc["p99_rel"] <= 2e-2 and fc["max_rel"] <= 0.25)
+        if not (np.isfinite(g).all() and uf["median_rel"] <= 1e-3 and fc["median_rel"] <= 1e-3
+                and tails and moved["largest"] <= 1 and moved["largest_share"] <= 1e-3):
+            res["card_vs_cpu"]["parting"] = int8_parting(torch, twin, cpu_twin, frames[8][:1])
+            raise AssertionError(f"int8 {label}: card vs CPU {res['card_vs_cpu']}, fed the "
+                                 f"card's int8 inputs {fc}")
         bf16 = None
         if getattr(model, "has_compute_dtype", False):
             bf16 = copy.deepcopy(model)
@@ -4189,6 +4353,8 @@ def int8_networks_phase(torch, card: str, ckpt: str | None) -> tuple[dict, list]
 
                 ms = cuda_ms(torch, fwd, reps=10 if b == top else 20, warmup=2)
                 res[f"{name}_b{b}_img_s"] = b / ms * 1e3
+                if name == "int8":
+                    res[f"device_us_b{b}"] = forward_device_us(torch, fwd)
                 if b == top:
                     torch.cuda.synchronize()
                     torch.cuda.reset_peak_memory_stats()
@@ -4201,13 +4367,20 @@ def int8_networks_phase(torch, card: str, ckpt: str | None) -> tuple[dict, list]
               f"{res['decoder_chain']}); card vs CPU median rel "
               f"{res['card_vs_cpu']['median_rel']:.3g}, p99 {res['card_vs_cpu']['p99_rel']:.3g}, "
               f"max {res['card_vs_cpu']['max_rel']:.3g}, share above 1e-3 "
-              f"{res['card_vs_cpu']['share_above_1e-3']:.3g}; "
+              f"{res['card_vs_cpu']['share_above_1e-3']:.3g}; fed the card's int8 inputs "
+              f"p99 {fc['p99_rel']:.3g}, max {fc['max_rel']:.3g}, codes moved "
+              f"{moved['codes']}; "
               + "; ".join(f"B={b} img/s int8 {res[f'int8_b{b}_img_s']:.1f} fp32 "
                           f"{res[f'fp32_b{b}_img_s']:.1f}"
                           + (f" bf16 {res[f'bf16_b{b}_img_s']:.1f}" if bf16 is not None else "")
                           for b in INT8_BATCHES)
               + f"; B={top} peak MiB int8 {res['int8_peak_mib']:.0f} fp32 "
               f"{res['fp32_peak_mib']:.0f}; on {card}", flush=True)
+        print(f"  int8 {label} forward's device µs: " + "; ".join(
+            f"B={b} int8 convs {d['int8_conv_us']:.1f} ({d['int8_conv_launches']:g} launches), "
+            f"all device events {d['all_us']:.1f}"
+            for b in INT8_BATCHES for d in [res[f"device_us_b{b}"]]) + f"; on {card}",
+              flush=True)
         out[label] = res
         del twin, cpu_twin, bf16, model
         torch.cuda.empty_cache()
@@ -4388,28 +4561,186 @@ def int8_export_phase(torch, tmp: Path, card: str, ckpt: str) -> dict:
     return res
 
 
+# convs the networks do not run, each a path of the kernel's: (x shape,
+# Cout, geometry, epilogue, residual dtype); the plain version holds them
+INT8_EDGE_CASES = (
+    ((2, 9, 11, 24), 21, (3, 3, (1, 1), (1, 1, 1, 1)), {"act": "relu", "out": "s8"}, None),
+    ((2, 9, 11, 24), 21, (3, 3, (1, 1), (1, 1, 1, 1)), {"act": "relu", "out": "s8",
+                                                        "res_scale": 0.02}, "int8"),
+    ((2, 9, 11, 5), 40, (3, 3, (1, 1), (2, 1, 0, 2), (1, 1), (2, 2)), {"out": "bf16"}, None),
+    ((2, 9, 11, 48), 300, (4, 2, (1, 1), (3, 0, 1, 2), (2, 2)), {"act": "elu", "out": "s8"},
+     "float32"),
+    ((1, 3, 5, 40), 21, (1, 1, (1, 1), (0, 1, 0, 1), (2, 2)), {"out": "f32"}, None),
+    ((3, 17, 19, 130), 70, (3, 3, (2, 2), (1, 1, 1, 1)), {"act": "relu", "out": "bf16"},
+     "bfloat16"),
+    ((1, 4, 13, 4096), 96, (3, 3, (1, 1), (1, 1, 1, 1)), {"act": "elu", "out": "f32"}, None),
+)
+
+
+def int8_call_host_us(torch, c: Int8Call) -> dict:
+    """Host µs of one int8 conv call (``host_us``): ``int8_conv`` as the
+    int8 twins call it (eagerly: the kernel's launch, checks included) and
+    through ``torch.ops.sdtpu.int8_conv``, the custom op an exported
+    program calls."""
+    from supervised_dispnet_tpu_torch.ops.cuda import int8_conv as ic
+
+    kw = c.kw
+    args = (c.xq, c.w, c.mult, c.bias, c.residual, c.geom.as_list(),
+            ic.ACTS[kw.get("act", "none")], ic.OUTS[kw.get("out", "f32")],
+            ic._res_mode(c.residual, kw.get("res_before_bias", False)),
+            float(kw.get("res_scale", 0.0)), float(kw.get("out_scale", 1.0)))
+    return {"int8_conv": host_us(torch, lambda: ic.int8_conv(c.xq, c.w, c.geom, c.mult, c.bias,
+                                                             residual=c.residual, **kw)),
+            "custom_op": host_us(torch, lambda: torch.ops.sdtpu.int8_conv(*args))}
+
+
+def int8_edge_cases(torch, card: str) -> dict:
+    """``INT8_EDGE_CASES`` on the card: odd and ragged Cout (scalar stores
+    and partial tiles), a C that the wrapper pads, rhs dilation with uneven
+    padding, a phase without taps, a stride-2 conv, a deep K split across
+    blocks; each int32 accumulator bit-equal to ``conv_acc_plain`` and each
+    output to the plain version's (ELU within one code)."""
+    from supervised_dispnet_tpu_torch.ops.cuda import int8_conv as ic
+
+    g = torch.Generator(device=CARD).manual_seed(41)
+    out = []
+    for shape, cout, geo, kw, res in INT8_EDGE_CASES:
+        geom = ic.Geometry(*geo)
+        x = torch.randint(-127, 128, shape, device=CARD, generator=g, dtype=torch.int8)
+        wq = torch.randint(-127, 128, (cout, geom.kh, geom.kw, shape[3]), device=CARD,
+                           generator=g, dtype=torch.int8)
+        w = ic.pack_weight(wq, geom)
+        mult = torch.rand(cout, device=CARD, generator=g) * 2e-5
+        bias = torch.randn(cout, device=CARD, generator=g) * 0.3
+        ho, wo = geom.out_hw(shape[1], shape[2])
+        r = None
+        if res == "int8":
+            r = torch.randint(-127, 128, (shape[0], ho, wo, cout), device=CARD, generator=g,
+                              dtype=torch.int8)
+        elif res is not None:
+            r = torch.randn(shape[0], ho, wo, cout, device=CARD, generator=g).to(
+                getattr(torch, res))
+        kw = {**kw, "out_scale": 0.05, "res_before_bias": res == "float32"}
+        acc = ic.int8_conv(x, w, geom, mult, bias, out="s32")
+        y = ic.int8_conv(x, w, geom, mult, bias, residual=r, **kw)
+        want = ic.int8_conv_plain(x, w, geom, mult, bias, residual=r, **kw)
+        torch.cuda.synchronize()
+        err = float((y.float() - want.float()).abs().max())
+        pl = ic.plan(tuple(x.shape), geom, cout)
+        row = {"x": list(shape), "cout": cout, "geom": geom.as_list(), "splits": pl.splits,
+               "acc_equal": torch.equal(acc, ic.conv_acc_plain(x, w, geom)), "max_abs_err": err}
+        out.append(row)
+        limit = 1.0 if kw.get("act") == "elu" and kw["out"] == "s8" else 0.0
+        if not row["acc_equal"] or not err <= limit:
+            raise AssertionError(f"int8 conv edge case {row} off the plain version")
+    print(f"  int8 conv edge cases: {len(out)} bit-equal to the plain version (K slices "
+          f"{[r['splits'] for r in out]}); on {card}", flush=True)
+    return {"cases": out, "card": card}
+
+
+# ResNet-50's layer2_0 conv2 at B=1 (3x3 stride 2, 128 -> 128 channels on
+# 32x104): 13 output tiles, 2 K slices, a workspace under 1 MiB
+INT8_FRESH_STREAM_CASE = ((1, 32, 104, 128), 128, (3, 3, (2, 2), (1, 1, 1, 1)))
+
+
+def int8_split_fresh_stream(torch, card: str) -> dict:
+    """``INT8_FRESH_STREAM_CASE`` launched twice on a new stream: the first
+    split-K launch there allocates its arrival counters (16 KiB) beside a
+    workspace of the caching allocator's small pool (under 1 MiB), so a
+    workspace freed before the launch would be handed out as the counters.
+    Both launches' int32 accumulators bit-equal to ``conv_acc_plain``, and
+    the counters back at 0 after them."""
+    from supervised_dispnet_tpu_torch.ops.cuda import int8_conv as ic
+
+    shape, cout, geo = INT8_FRESH_STREAM_CASE
+    geom = ic.Geometry(*geo)
+    g = torch.Generator(device=CARD).manual_seed(43)
+    x = torch.randint(-127, 128, shape, device=CARD, generator=g, dtype=torch.int8)
+    wq = torch.randint(-127, 128, (cout, geom.kh, geom.kw, shape[3]), device=CARD,
+                       generator=g, dtype=torch.int8)
+    w = ic.pack_weight(wq, geom)
+    mult = torch.ones(cout, device=CARD)
+    bias = torch.zeros(cout, device=CARD)
+    pl = ic.plan(shape, geom, cout)
+    ws_bytes = pl.tiles * pl.splits * pl.bm * pl.bn * 4
+    if pl.splits < 2 or ws_bytes >= 2**20:
+        raise AssertionError(f"int8 fresh-stream case: {pl.splits} K slices, workspace "
+                             f"{ws_bytes} B; wants a split with a workspace under 1 MiB")
+    want = ic.conv_acc_plain(x, w, geom)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        got = [ic.int8_conv(x, w, geom, mult, bias, out="s32") for _ in range(2)]
+    stream.synchronize()
+    counters = ic._counters[(x.device.index, stream.cuda_stream)]
+    row = {"x": list(shape), "cout": cout, "splits": pl.splits, "workspace_bytes": ws_bytes,
+           "acc_equal": [torch.equal(a, want) for a in got],
+           "counters_zero": not bool(counters.any()), "card": card}
+    if not all(row["acc_equal"]) or not row["counters_zero"]:
+        raise AssertionError(f"int8 conv: split-K on a new stream off the plain version: {row}")
+    print(f"  int8 conv split-K on a new stream (x{list(shape)}, {pl.splits} K slices, "
+          f"workspace {ws_bytes} B): two launches bit-equal to the plain version, counters "
+          f"back at 0; on {card}", flush=True)
+    return row
+
+
+def int8_sass() -> dict:
+    """The built int8 conv's tensor-core instructions, from ``cuobjdump
+    -sass`` beside ``nvcc`` (Hopper's wgmma shows as IGMMA for int8): their
+    count and shapes; None where the toolkit has no cuobjdump."""
+    from supervised_dispnet_tpu_torch.ops.cuda import _build
+
+    tool = shutil.which("cuobjdump") or str(Path(_build.find_nvcc()).with_name("cuobjdump"))
+    if not Path(tool).exists():
+        return {"igmma": None}
+    sass = subprocess.run([tool, "-sass", str(_build.library_path("int8_conv"))],
+                          capture_output=True, text=True, check=True).stdout
+    ops = re.findall(r"\b([A-Z]*GMMA\.[\w.]+)", sass)
+    return {"igmma": len(ops), "shapes": sorted(set(ops)),
+            "mma_sync": len(re.findall(r"\bIMMA\.", sass))}
+
+
 def int8_phase(torch, tmp: Path, card: str, ckpt: str, tree: Path) -> tuple[dict, dict]:
-    """int8 serving on the card (A5): the networks' int8 twins, every conv
-    shape of DispResNet-50 (chains and fused decoder) at (8, 3, 128, 416),
-    FCRN's unpool convs and DispNetS's ragged ones against the plain
-    version and timed, the int8 service, the eval CLI with ``--int8``
-    beside fp32, ``--qat`` training and an int8 export round trip. Returns
-    (its results, the int8 conv's kernels-line entry)."""
+    """int8 serving on the card (A5): the int8 conv's build holds wgmma
+    (``int8_sass``); the networks' int8 twins (img/s, device µs a
+    forward); every conv shape of DispResNet-50 (chains and fused decoder)
+    at (8, 3, 128, 416), FCRN's unpool convs and DispNetS's ragged ones
+    against the plain version and timed, one deep K also in one K slice;
+    the kernel's other paths (``INT8_EDGE_CASES``); a call's host µs; the
+    int8 service, the eval CLI with ``--int8`` beside fp32, ``--qat``
+    training and an int8 export round trip. Returns (its results, the int8
+    conv's kernels-line entry)."""
     tmp.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
+    sass = int8_sass()
+    print(f"  int8 conv SASS: {sass}", flush=True)
+    if sass["igmma"] == 0:
+        raise AssertionError(f"the int8 conv's build holds no wgmma (IGMMA) instruction: {sass}")
     nets, calls = int8_networks_phase(torch, card, ckpt)
     rows = int8_conv_cases(torch, calls, card)
-    del calls
+    edges = int8_edge_cases(torch, card)
+    fresh = int8_split_fresh_stream(torch, card)
+    shape, kh = INT8_LINE_CASE
+    line_call = next(c for c in calls if tuple(c.xq.shape) == shape and c.geom.kh == kh
+                     and c.w.shape[0] == shape[3])
+    host = int8_call_host_us(torch, line_call)
+    print(f"  int8 conv host µs a call (x{list(shape)}, {kh}x{kh}): int8_conv "
+          f"{host['int8_conv']:.1f}, through the custom op {host['custom_op']:.1f}; on {card}",
+          flush=True)
+    del calls, line_call
     torch.cuda.empty_cache()
     for r in rows:
         dev = "not measured" if r["device_us"] is None else f"{r['device_us']:.2f} us"
+        pl = r["plan"]
         print(f"  int8 conv x{r['x']} -> {r['cout']} k {r['k']} geom {r['geom']} "
-              f"{r['out']}/{r['act']}/{r['residual']}: {r['ms']:.4f} ms, device "
+              f"{r['out']}/{r['act']}/{r['residual']} (C padded {r['cp']}; tile {pl['bm']}x"
+              f"{pl['bn']}, {pl['splits']} K slices, {pl['phases']} phases"
+              f"{', split-K = one slice' if r.get('split_k_equal_one_slice') else ''}): "
+              f"{r['ms']:.4f} ms, device "
               f"{dev}, bound {r['bound_ms'] * 1e3:.2f} us "
               f"({r['bound_by']}), plain {r['plain_ms']:.3f} ms, _int_mm "
               f"{r['library_ms']:.4f} ms, cuDNN fp32 {r['cudnn_fp32_ms']:.4f} / bf16 "
               f"{r['cudnn_bf16_ms']:.4f} ms", flush=True)
-    shape, kh = INT8_LINE_CASE
     line = next(r for r in rows if r["x"] == list(shape) and r["geom"][0] == kh
                 and r["cout"] == shape[3])
     sv = int8_serving_phase(torch, tmp, card, ckpt, tree)
@@ -4437,7 +4768,9 @@ def int8_phase(torch, tmp: Path, card: str, ckpt: str, tree: Path) -> tuple[dict
     wall = time.perf_counter() - t0
     print(f"  int8 phase: {wall:.1f} s", flush=True)
     return {"networks": nets, "conv_cases": rows, "serving": sv, "eval": ev, "qat": tr,
-            "export": exp, "wall_s": wall}, entry
+            "export": exp, "sass": sass, "edge_cases": edges,
+            "split_fresh_stream": fresh, "host_us": host,
+            "wall_s": wall}, entry
 
 
 def main() -> int:

@@ -398,13 +398,16 @@ def _vgg_stages(enc: VggEncoder) -> list[list[tuple[int, nn.Conv2d, nn.Module]]]
 
 
 class _QWeights(nn.Module):
-    """A packed int8 conv weight with its scale, bias and geometry."""
+    """An int8 conv weight packed once for its geometry (``pack_weight``:
+    Cin padded to a multiple of 16, an lhs-dilated conv's phases apart),
+    with its scale, bias, geometry and true input channels ``cin``."""
 
     def __init__(self, entry: tuple, geom: Geometry):
         super().__init__()
         wq, ws, bias = entry
         self.geom = geom
-        self.register_buffer("w", pack_weight(wq.contiguous()))
+        self.cin = wq.shape[3]
+        self.register_buffer("w", pack_weight(wq.contiguous(), geom))
         self.register_buffer("ws", ws.detach().float().clone())
         self.register_buffer("bias", torch.zeros_like(self.ws) if bias is None
                              else bias.detach().float().clone())

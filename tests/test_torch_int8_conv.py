@@ -60,7 +60,7 @@ def _case(gid, seed=0, cout=24):
     x = rng.integers(-127, 128, (2, 9, 11, cin)).astype(np.int8)
     w = rng.integers(-127, 128, (k, k, cin, cout)).astype(np.int8)
     geom = ic.Geometry(k, k, stride, (*pad[0], *pad[1]), lhs, rhs)
-    packed = ic.pack_weight(torch.from_numpy(w).permute(3, 0, 1, 2).contiguous())
+    packed = ic.pack_weight(torch.from_numpy(w).permute(3, 0, 1, 2).contiguous(), geom)
     return x, w, geom, packed, (stride, pad, lhs, rhs)
 
 
