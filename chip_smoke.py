@@ -153,6 +153,19 @@ Phases; any failure exits non-zero:
        supervised and self-supervised (launches as without it) and a
        fake-quant step card against CPU; an int8 export loaded and run in a
        fresh process;
+     - data-parallel training (``parallel_phase``): the given-threshold
+       BerHu forward (the second forward launch of a data-parallel step)
+       against the plain version with the same c, groups of 1 and 4, two
+       runs bit-equal; ``scripts/torch_parallel_run.py`` under
+       ``torch.distributed.run`` on 1 rank (NCCL) and on 2 ranks sharing the
+       card (gloo): a sum and a max over the ranks, one step of DispResNet-50
+       BerHu, DispResNet-50 multi-scale classification and DispNetS +
+       PoseExpNet from the same weights on the same global batch of 4, 2
+       ranks against 1 (loss, gradients, BN statistics), each rank's
+       launches (BerHu 2 forward + 1 backward on 2 ranks, 1 + 1 on one; CE
+       1 + 1 a scale; warp 1 + 1), the step times and the collectives'
+       share; 3 DispResNet-50 BerHu steps through ``cli.train`` on each,
+       their checkpoints side by side;
      - ``ops.warp.inverse_warp`` with its default ``diff_img=True`` and a
        backward into the image, depth and pose (the image+coordinate
        backward's path), against the plain sampler on the card;
@@ -172,7 +185,8 @@ Phases; any failure exits non-zero:
      eval and inference numbers, a JSON line of the pose, serving and
      network numbers, a JSON line of the training options' numbers, a JSON
      line of the int8 numbers, a JSON line of the photometric arms',
-     loaders', ETL and convergence numbers, a
+     loaders', ETL and convergence numbers, a JSON line of the
+     data-parallel numbers, a
      JSON line of kernel numbers, the card line, and as the last line
      ``{"ok": true, "device": {...}}``.
 
@@ -4773,6 +4787,260 @@ def int8_phase(torch, tmp: Path, card: str, ckpt: str, tree: Path) -> tuple[dict
             "wall_s": wall}, entry
 
 
+PARALLEL_RANKS = (1, 2)  # the 1-rank run (NCCL) and the 2-rank run (gloo, one card)
+PARALLEL_KINDS = ("berhu", "classification", "selfsup")
+PARALLEL_TRAIN_STEPS = 3
+PARALLEL_TIMED_STEPS = 5
+PARALLEL_ENCODERS = ("disp.encoder.", "disp.conv", "pose.conv")  # rel-L2 5e-2 (ROADMAP C4)
+# the decoder and heads' rel-L2 limit, 2 ranks against 1: 1e-3; the
+# self-supervised step's 5e-3, as two runs of that step alone on the card
+# part by ~3.5e-4 and up to ~1e-3 on a gradient whose terms cancel (C4)
+PARALLEL_DECODER_LIMIT = {"berhu": 1e-3, "classification": 1e-3, "selfsup": 5e-3}
+# each configuration's launches a step on every rank of the 2-rank run
+PARALLEL_LAUNCHES = {
+    "berhu": {"berhu_fwd_launches": 1, "berhu_fwd_given_c_launches": 1,
+              "berhu_bwd_launches": 1},
+    "classification": {"ce_fwd_launches": 4, "ce_bwd_launches": 4},  # 1 + 1 a scale
+    "selfsup": {"warp_fwd_launches": 1, "warp_bwd_coords_launches": 1},
+}
+
+
+def berhu_given_c_check(torch) -> dict:
+    """The given-threshold BerHu forward (``berhu_forward_given_c``, the
+    second forward launch of a data-parallel step) against the plain
+    version with the same c, for a group of 1 and one of 4 at the main
+    shape, with the forward's own c and with c scaled by 0.6 and by 1.7 (a
+    rank's c is the max over all ranks, not its own): the weighted total
+    rtol 1e-5, the gradients (the unchanged backward, reading the given c)
+    atol 1e-6; each problem's count exact; two runs bit-equal. Then its
+    time, the plain version's and the bound."""
+    from supervised_dispnet_tpu_torch.losses.supervised import berhu_loss_plain
+    from supervised_dispnet_tpu_torch.ops.cuda import losses as kl
+
+    rng = np.random.default_rng(21)
+    err_l = err_g = 0.0
+    for P in (1, 4):
+        preds, gt, mask = _berhu_group(torch, rng, MAIN_SHAPE, P)
+        weights = STEP_WEIGHTS[:P]
+        own = kl.berhu_forward_many(preds, gt, mask, weights)[2:3 * P:3].contiguous()
+        for scale in (1.0, 0.6, 1.7):
+            c = (own * scale).contiguous()
+            reqs = [p.clone().requires_grad_(True) for p in preds]
+            total = kl.berhu_loss_many_cuda(reqs, gt, mask, weights, c=c)
+            total.backward()
+            plain = [p.clone().requires_grad_(True) for p in preds]
+            ref = torch.zeros((), device=gt.device)
+            for s, (p, w) in enumerate(zip(plain, weights)):
+                ref = ref + w * berhu_loss_plain(p, gt, mask, c=c[s])
+            ref.backward()
+            sums = kl.berhu_forward_given_c(preds, gt, mask, c)
+            again = kl.berhu_forward_given_c(preds, gt, mask, c)
+            reqs2 = [p.clone().requires_grad_(True) for p in preds]
+            kl.berhu_loss_many_cuda(reqs2, gt, mask, weights, c=c).backward()
+            torch.cuda.synchronize()
+            e_l = abs(float(total.detach()) - float(ref.detach()))
+            e_g = max(float((a.grad - b.grad).abs().max()) for a, b in zip(reqs, plain))
+            err_l, err_g = max(err_l, e_l), max(err_g, e_g)
+            count = float(mask.to(torch.float32).sum())
+            ok = (math.isclose(float(total.detach()), float(ref.detach()), rel_tol=1e-5) and e_g <= 1e-6
+                  and float(sums[P]) == count and torch.equal(sums, again)
+                  and all(torch.equal(a.grad, b.grad) for a, b in zip(reqs, reqs2)))
+            print(f"  berhu given c, P={P}, c x {scale}: total kernel {float(total.detach()):.7g} plain "
+                  f"{float(ref.detach()):.7g} (abs err {e_l:.3g}); grad max abs err {e_g:.3g}; count "
+                  f"{float(sums[P]):.0f}; two runs bit-equal", flush=True)
+            if not ok:
+                raise AssertionError(f"the given-c BerHu forward disagrees with the plain "
+                                     f"version (P={P}, c x {scale}) or with itself")
+    # timings at the step's group of 4
+    preds, gt, mask = _berhu_group(torch, rng, MAIN_SHAPE, 4)
+    c = kl.berhu_forward_many(preds, gt, mask, STEP_WEIGHTS)[2:12:3].contiguous()
+
+    def plain_fwd():
+        total = torch.zeros((), device=gt.device)
+        for s, (p, w) in enumerate(zip(preds, STEP_WEIGHTS)):
+            total = total + w * berhu_loss_plain(p, gt, mask, c=c[s])
+        return total
+
+    n, P = gt.numel(), 4
+    ms = cuda_ms(torch, lambda: kl.berhu_forward_given_c(preds, gt, mask, c))
+    plain_ms = cuda_ms(torch, plain_fwd)
+    # the profiler can drop a kernel's events: up to 3 profiles, else the
+    # device time is not measured (None), never read as 0
+    name = "berhu_forward_given_c_group_kernel"
+    for _ in range(3):
+        us, per_call = device_us(torch, lambda: kl.berhu_forward_given_c(preds, gt, mask, c),
+                                 (name,))[name]
+        if per_call > 0:
+            break
+    dev_us = us if per_call > 0 else None
+    # read the 4 predictions, gt (f32), the 1-byte mask and c once, write
+    # the P + 1 sums; ~8 flops an element and problem
+    bound = bound_ms((4 * P + 5) * n + 4 * P + 4 * (P + 1), 8 * P * n)
+    shown = "not measured (no event in 3 profiles)" if dev_us is None else f"{dev_us:.2f}"
+    print(f"  berhu given c, step group (4 problems): kernel_ms {ms:.5f} plain_ms "
+          f"{plain_ms:.5f} device_us {shown} bound_us {bound[0] * 1e3:.3f}; "
+          f"library_ms null", flush=True)
+    return {"name": "berhu_fwd_given_c", "route": "cuda",
+            "source": "supervised_dispnet_tpu_torch/csrc/berhu.cu",
+            "replaces": f"{TPU_KERNEL}:203", "max_abs_err": max(err_l, err_g), "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound[0], "bound_by": bound[1],
+            "library_ms": None, "device_us": dev_us, "problems": P}
+
+
+def _launch_ranks(n: int, out: Path, cli: list[str], timeout: float = 600.0) -> list[dict]:
+    """``scripts/torch_parallel_run.py`` on ``n`` ranks of this card under
+    ``torch.distributed.run`` (a free localhost port); each rank's record."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nnodes", "1",
+           "--nproc-per-node", str(n), "--master-addr", "127.0.0.1", "--master-port",
+           str(_free_port()), str(REPO / "scripts" / "torch_parallel_run.py"), str(out),
+           "--steps", str(PARALLEL_TIMED_STEPS), "--", *cli]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=timeout)
+    wall = time.perf_counter() - t0
+    tail = (proc.stdout[-3000:] + proc.stderr[-3000:])
+    if proc.returncode:
+        raise AssertionError(f"{n}-rank run exited {proc.returncode}:\n{tail}")
+    ranks = [json.loads((out / f"rank{r}.json").read_text()) for r in range(n)]
+    print(f"  parallel: {n} rank(s) ran in {wall:.1f} s; backend "
+          f"{ranks[0]['backend']}; {[r['device'] for r in ranks]}", flush=True)
+    for line in proc.stdout.splitlines():
+        if line.startswith("=> data-parallel"):
+            print(f"    {line}", flush=True)
+    return ranks
+
+
+def parallel_phase(torch, tmp: Path, card: str) -> tuple[dict, dict]:
+    """Data-parallel training (``parallel/mesh.py``) on this card: the
+    given-c BerHu forward against its plain version
+    (``berhu_given_c_check``); then ``scripts/torch_parallel_run.py`` under
+    ``torch.distributed.run`` on 1 rank (NCCL) and on 2 ranks sharing the
+    card (gloo), in a subprocess each: a sum and a max over the ranks; one
+    step of each
+    configuration of the slice (DispResNet-50 BerHu, DispResNet-50
+    multi-scale classification, DispNetS + PoseExpNet) from the same seeded
+    weights on the same global batch of 4 at 128x416, 2 ranks against 1 (loss
+    rtol 1e-4; decoder and head gradients rel-L2 1e-3, the self-supervised
+    step's 5e-3, as two runs of that step alone part by up to ~1e-3, C4;
+    encoder gradients rel-L2 5e-2, C4; BN running statistics rel-L2 1e-3),
+    with each rank's launches (BerHu 2 forward + 1 backward on 2 ranks, 1 + 1 on one;
+    CE 1 + 1 a scale; warp 1 grouped forward + 1 coordinate-only backward)
+    and its step times and collective time; then 3 steps of DispResNet-50
+    BerHu through ``cli.train`` on each (BerHu 2 + 1 launches a step on each
+    of 2 ranks, 1 + 1 on one), their checkpoints' decoder and heads within
+    ``dispatch_gap`` 5% of each other. The encoder's gap is printed, not
+    held: Adam's first updates take the sign of gradient entries that
+    rounding decides, and the encoder's (ROADMAP C4) part by 1.8e-2 rel-L2
+    between 1 and 2 ranks; a rerun of the same 1-rank run already parts by
+    6.5% over the whole net after 3 steps (scripts/torch_parallel_spread.py,
+    PERF.md). Returns the
+    summary and the given-c kernel's line entry (its launches: the 2-rank
+    CLI run's, on rank 0)."""
+    from supervised_dispnet_tpu_torch.models import get_disp_net
+
+    entry = berhu_given_c_check(torch)
+    B, H, W = MAIN_SHAPE
+    write_packed(tmp / "data", np.random.default_rng(1), H, W)
+    runs = {}
+    for n in PARALLEL_RANKS:
+        cli = [str(tmp / "data"), "--network", "disp_res_50", "--loss", "berhu", "-b", str(B),
+               "--epoch-size", str(PARALLEL_TRAIN_STEPS), "--epochs", "1", "--with-gt",
+               "--checkpoints-dir", str(tmp / f"ck{n}"), "--name", "parallel"]
+        runs[n] = _launch_ranks(n, tmp / f"ranks{n}", cli)
+    one, two = runs[1], runs[2]
+    if one[0]["backend"] != "nccl" or any(r["backend"] != "gloo" for r in two):
+        raise AssertionError(f"backends {one[0]['backend']} / {[r['backend'] for r in two]}: "
+                             "want nccl on one rank, gloo for two ranks on one card")
+    if not all(r["collectives"] for r in one + two):
+        raise AssertionError("a sum or max over the ranks came out wrong")
+    report = {"card": card, "steps": {}}
+    for kind in PARALLEL_KINDS:
+        ref = torch.load(tmp / "ranks1" / f"{kind}.pt", weights_only=False)
+        got = torch.load(tmp / "ranks2" / f"{kind}.pt", weights_only=False)
+        if not math.isclose(got["loss"], ref["loss"], rel_tol=1e-4):
+            raise AssertionError(f"parallel {kind}: loss {got['loss']} on 2 ranks, "
+                                 f"{ref['loss']} on 1")
+        rels = {k: _rel_l2(got["grads"][k], g) for k, g in ref["grads"].items()}
+        bad = [f"{k} {r:.3g}" for k, r in rels.items()
+               if r > (5e-2 if k.startswith(PARALLEL_ENCODERS) else PARALLEL_DECODER_LIMIT[kind])]
+        bn = {k: _rel_l2(got["bn"][k], v) for k, v in ref["bn"].items()}
+        bad += [f"{k} {r:.3g}" for k, r in bn.items() if r > 1e-3]
+        if bad or set(rels) != set(got["grads"]):
+            raise AssertionError(f"parallel {kind}: 2 ranks against 1: {bad[:8]}")
+        want = PARALLEL_LAUNCHES[kind]
+        for r in two:
+            seen = {k: v for k, v in r["steps"][kind]["launches"].items() if v}
+            if seen != want:
+                raise AssertionError(f"parallel {kind} rank {r['rank']}: launches {seen}, "
+                                     f"want {want}")
+        seen1 = {k: v for k, v in one[0]["steps"][kind]["launches"].items() if v}
+        want1 = {k: v for k, v in want.items() if k != "berhu_fwd_given_c_launches"}
+        if seen1 != want1:
+            raise AssertionError(f"parallel {kind} on 1 rank: launches {seen1}, want {want1}")
+        dec = [r for k, r in rels.items() if not k.startswith(PARALLEL_ENCODERS)]
+        worst = max((k for k in rels if not k.startswith(PARALLEL_ENCODERS)), key=rels.get)
+        enc = [r for k, r in rels.items() if k.startswith(PARALLEL_ENCODERS)]
+        times = {n: [r["steps"][kind] for r in runs[n]] for n in PARALLEL_RANKS}
+        med = {n: [float(np.median(t["step_ms"])) for t in times[n]] for n in PARALLEL_RANKS}
+        coll = {n: [float(np.median(t["collective_ms"])) for t in times[n]]
+                for n in PARALLEL_RANKS}
+        report["steps"][kind] = {
+            "loss": [ref["loss"], got["loss"]], "decoder_rel_l2_max": max(dec),
+            "decoder_rel_l2_worst": worst,
+            "encoder_rel_l2_max": max(enc) if enc else None,
+            "bn_rel_l2_max": max(bn.values()) if bn else None,
+            "launches_a_rank": {n: runs[n][0]["steps"][kind]["launches"]
+                                for n in PARALLEL_RANKS},
+            "step_ms_median": med, "collective_ms_median": coll}
+        print(f"  parallel {kind}: loss {ref['loss']:.7g} (1 rank) / {got['loss']:.7g} "
+              f"(2 ranks); decoder and head gradients rel-L2 max {max(dec):.3g} ({worst}; "
+              f"limit {PARALLEL_DECODER_LIMIT[kind]:g})"
+              + (f", encoder {max(enc):.3g}" if enc else "")
+              + (f", BN statistics {max(bn.values()):.3g}" if bn else "")
+              + f"; launches a rank {want}; step ms median 1 rank {med[1][0]:.2f}, "
+              f"2 ranks {[round(m, 2) for m in med[2]]} (collectives "
+              f"{[round(c, 2) for c in coll[2]]} ms), on {card}", flush=True)
+    # the CLI's 3 steps: launches a rank, and the checkpoints side by side
+    train = {n: [r["train"] for r in runs[n]] for n in PARALLEL_RANKS}
+    for n in PARALLEL_RANKS:
+        for r, t in enumerate(train[n]):
+            steps = t["steps"]
+            want = {"berhu_fwd_launches": steps, "berhu_bwd_launches": steps,
+                    **({"berhu_fwd_given_c_launches": steps} if n > 1 else {})}
+            seen = {k: v for k, v in t["launches"].items() if v}
+            if steps != PARALLEL_TRAIN_STEPS or seen != want:
+                raise AssertionError(f"parallel CLI, {n} rank(s), rank {r}: {steps} steps, "
+                                     f"launches {seen}, want {want}")
+    ckpts = {n: sorted((tmp / f"ck{n}" / "parallel").glob("*/dispnet_checkpoint.pth.tar"))
+             for n in PARALLEL_RANKS}
+    if any(len(c) != 1 for c in ckpts.values()):
+        raise AssertionError(f"want one checkpoint a run, got {ckpts}")
+    init = dict(get_disp_net("disp_res_50", seed=0, device="cpu").named_parameters())
+    sds = {n: torch.load(c[0], map_location="cpu", weights_only=True)["state_dict"]
+           for n, c in ckpts.items()}
+
+    def gap(names):
+        return dispatch_gap(torch, (None, [sds[2][k] for k in names]),
+                            ([init[k].detach() for k in names], [sds[1][k] for k in names]))
+
+    enc = [k for k in init if k.startswith("encoder.")]
+    gaps = {"decoder_and_heads": gap([k for k in init if k not in enc]),
+            "encoder": gap(enc), "all": gap(list(init))}
+    print(f"  parallel CLI: 3 DispResNet-50 BerHu steps on 1 rank (nccl) and on 2 ranks "
+          f"(gloo): checkpoints apart by {gaps['decoder_and_heads']:.4f} of the 1-rank run's "
+          f"movement over the decoder and heads (limit 0.05); the encoder's "
+          f"{gaps['encoder']:.4f}, all {gaps['all']:.4f} (not held: ROADMAP C4); wall "
+          f"{train[1][0]['wall_s']:.1f} s / {train[2][0]['wall_s']:.1f} s", flush=True)
+    if gaps["decoder_and_heads"] > 0.05:
+        raise AssertionError(f"parallel CLI: the 2-rank checkpoint's decoder and heads are "
+                             f"{gaps['decoder_and_heads']:.4f} of the 1-rank run's movement "
+                             "away from it (limit 0.05)")
+    report["cli"] = {"dispatch_gap": gaps, "launches": {n: [t["launches"] for t in train[n]]
+                                                        for n in PARALLEL_RANKS},
+                     "wall_s": {n: [t["wall_s"] for t in train[n]] for n in PARALLEL_RANKS}}
+    entry["launches"] = train[2][0]["launches"]["berhu_fwd_given_c_launches"]
+    return report, entry
+
+
 def main() -> int:
     import torch
 
@@ -4838,6 +5106,7 @@ def main() -> int:
         arms = photometric_arms_phase(torch, Path(tmp) / "arms", card)
         loaders = device_loader_phase(torch, Path(tmp) / "loaders", card)
         etl = etl_phase(torch, Path(tmp) / "etl", card)
+        par, par_entry = parallel_phase(torch, Path(tmp) / "parallel", card)
     iw = inverse_warp_phase(torch)
     xc = {**cross_check(torch), **selfsup_cross_check(torch)}
     conv = convergence_phase(torch)
@@ -4872,6 +5141,8 @@ def main() -> int:
                            ("warp_fwd_group", "selfsup", "warp_fwd"),
                            ("warp_bwd_coords_group", "selfsup", "warp_bwd_coords")):
         kernels[name]["etl_launches"] = etl["launches"][run][key]
+    # the given-c BerHu forward: the 2-rank CLI run's launches (rank 0)
+    kernels["berhu_fwd_given_c"] = par_entry
     if not all(e["launches"] > 0 for e in kernels.values()):
         raise AssertionError(f"a kernel was not launched on its path: {launches}")
     print(json.dumps({"slices": {
@@ -4890,6 +5161,7 @@ def main() -> int:
     print(json.dumps({"int8": i8}))
     print(json.dumps({"photometric_arms": arms, "loaders": loaders, "etl": etl,
                       "convergence": conv}))
+    print(json.dumps({"parallel": par}))
     print(json.dumps({"kernels": list(kernels.values())}))
     print(card)
     print(json.dumps({"ok": True, "device": {

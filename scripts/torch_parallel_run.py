@@ -1,0 +1,187 @@
+#!/usr/bin/env python3
+"""One rank of a data-parallel run of the port, for ``chip_smoke.py``'s
+parallel phase. Start it under PyTorch's launcher, one process a rank:
+
+    python -m torch.distributed.run --nproc-per-node N scripts/torch_parallel_run.py \
+        <out_dir> [--kinds berhu,classification,selfsup] [--steps K] \
+        [-- <cli.train arguments>]
+
+Each rank joins the process group (``parallel.mesh.init_from_env``: NCCL
+when each rank has a card of its own, gloo where ranks share one) and
+
+1. checks a sum and a max over the ranks of a tensor on its card;
+2. for each configuration of ``--kinds``, at 128x416 from seeded weights
+   (DispResNet-50 BerHu, DispResNet-50 multi-scale classification with 64
+   bins, DispNetS + PoseExpNet self-supervised), takes one train step on
+   its rows of a seeded global batch of 4 (the augmentation drawn for the
+   global batch), with every kernel count set to 0 just before it and read
+   just after; rank 0 saves the loss, the gradients and the BatchNorm
+   running statistics to ``<out_dir>/<kind>.pt``; then it times K more
+   steps on the same batch, each by the host clock after a wait for the
+   card, and the part of each spent in the collectives
+   (``parallel.Mesh.timed``: each collective waits for the card first);
+3. with arguments after ``--``, trains through ``cli.train.main`` with them,
+   its launches counted the same way;
+
+and writes ``<out_dir>/rank{r}.json``.
+
+Imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+REPO = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(REPO))
+
+from supervised_dispnet_tpu_torch.ops.cuda import classification as kc  # noqa: E402
+from supervised_dispnet_tpu_torch.ops.cuda import losses as kl  # noqa: E402
+from supervised_dispnet_tpu_torch.ops.cuda import warp as kw  # noqa: E402
+from supervised_dispnet_tpu_torch.parallel import mesh as parallel  # noqa: E402
+
+SHAPE = (4, 128, 416)  # global B, H, W
+COUNTERS = ((kl, "berhu_fwd_launches"), (kl, "berhu_fwd_given_c_launches"),
+            (kl, "berhu_bwd_launches"), (kc, "ce_fwd_launches"), (kc, "ce_bwd_launches"),
+            (kw, "warp_fwd_launches"), (kw, "warp_bwd_launches"),
+            (kw, "warp_bwd_coords_launches"))
+
+
+def zero_counts() -> None:
+    for mod, attr in COUNTERS:
+        setattr(mod, attr, 0)
+
+
+def read_counts() -> dict:
+    torch.cuda.synchronize()
+    return {attr: getattr(mod, attr) for mod, attr in COUNTERS}
+
+
+def global_batch(kind: str) -> dict:
+    """The seeded global batch of 4: uint8 frames (and, self-supervised, two
+    reference frames), KITTI-like intrinsics, ~10% sparse depth."""
+    B, H, W = SHAPE
+    rng = np.random.default_rng(7)
+    K = np.array([[241.7, 0.0, W / 2], [0.0, 246.3, H / 2], [0.0, 0.0, 1.0]], np.float32)
+    batch = {"tgt": rng.integers(0, 256, (B, H, W, 3), dtype=np.uint8),
+             "intrinsics": np.tile(K, (B, 1, 1))}
+    if kind == "selfsup":
+        batch["ref_imgs"] = rng.integers(0, 256, (B, 2, H, W, 3), dtype=np.uint8)
+    else:
+        depth = rng.uniform(1.0, 80.0, (B, H, W)) * (rng.uniform(size=(B, H, W)) < 0.1)
+        batch["depth"] = depth.astype(np.float16)
+    return batch
+
+
+def build_step(kind: str, device: torch.device, mesh):
+    """The configuration's nets on ``device`` and its train step on ``mesh``."""
+    from supervised_dispnet_tpu_torch.losses.classification import DepthBins
+    from supervised_dispnet_tpu_torch.models import PoseExpNet, get_disp_net
+    from supervised_dispnet_tpu_torch.training.train_step import (
+        make_selfsup_train_step, make_supervised_train_step)
+    from supervised_dispnet_tpu_torch.training.trainer import TrainerConfig, build_optimizer
+    from supervised_dispnet_tpu_torch.utils.device import set_fp32_math
+
+    set_fp32_math()
+    if kind == "selfsup":
+        disp = get_disp_net("dispnet", seed=0, device=device)
+        pose = PoseExpNet(generator=torch.Generator().manual_seed(1)).to(device)
+        nets = {"disp": disp, "pose": pose}
+        opt = build_optimizer(TrainerConfig(), [p for n in nets.values() for p in n.parameters()])
+        step = make_selfsup_train_step(disp, pose, opt, mesh=mesh,
+                                       photo_generator=torch.Generator().manual_seed(0))
+    else:
+        cls = kind == "classification"
+        disp = get_disp_net("disp_res_50", head="classification" if cls else "disp",
+                            multiscale_classification=cls, seed=0, device=device)
+        nets = {"disp": disp}
+        opt = build_optimizer(TrainerConfig(), disp.parameters())
+        step = make_supervised_train_step(disp, opt, "classification" if cls else "berhu",
+                                          bins=DepthBins(), mesh=mesh)
+    return nets, step
+
+
+def collectives_agree(mesh, device: torch.device) -> bool:
+    """A sum and a max over the ranks of a float32 tensor on the card."""
+    t = torch.tensor([mesh.rank + 1.0, -float(mesh.rank)], device=device)
+    total = mesh.all_reduce_(t.clone())
+    top = mesh.all_reduce_(t.clone(), "max")
+    n = mesh.size
+    return (total.tolist() == [n * (n + 1) / 2, -n * (n - 1) / 2]
+            and top.tolist() == [float(n), 0.0])
+
+
+def one_step(out: Path, kind: str, device: torch.device, mesh, steps: int) -> dict:
+    nets, step = build_step(kind, device, mesh)
+    batch = parallel.shard_batch(global_batch(kind), mesh, device)
+    gen = torch.Generator(device=device).manual_seed(0)
+    zero_counts()
+    loss = float(step(batch, gen)["loss"])
+    launches = read_counts()
+    if mesh.is_main:
+        torch.save({
+            "loss": loss,
+            "grads": {f"{tag}.{k}": p.grad.detach().cpu() for tag, net in nets.items()
+                      for k, p in net.named_parameters() if p.grad is not None},
+            "bn": {f"{tag}.{k}": v.detach().cpu() for tag, net in nets.items()
+                   for k, v in net.state_dict().items() if "running_" in k}},
+            out / f"{kind}.pt")
+    times, collective = [], []
+    mesh.timed = True
+    for _ in range(steps):
+        mesh.collective_s = 0.0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(batch, gen)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        collective.append(mesh.collective_s)
+    mesh.timed = False
+    return {"loss": loss, "launches": launches, "step_ms": [t * 1e3 for t in times],
+            "collective_ms": [c * 1e3 for c in collective]}
+
+
+def main() -> None:
+    argv = sys.argv[1:]
+    cli = []
+    if "--" in argv:
+        cut = argv.index("--")
+        argv, cli = argv[:cut], argv[cut + 1:]
+    p = argparse.ArgumentParser()
+    p.add_argument("out")
+    p.add_argument("--kinds", default="berhu,classification,selfsup")
+    p.add_argument("--steps", type=int, default=5)
+    args = p.parse_args(argv)
+    out = Path(args.out)
+    out.mkdir(parents=True, exist_ok=True)
+    device, mesh = parallel.init_from_env("cuda")
+    try:
+        record = {"rank": mesh.rank, "ranks": mesh.size, "backend": mesh.backend,
+                  "device": str(device), "collectives": collectives_agree(mesh, device),
+                  "steps": {}}
+        for kind in filter(None, args.kinds.split(",")):
+            record["steps"][kind] = one_step(out, kind, device, mesh, args.steps)
+        if cli:
+            from supervised_dispnet_tpu_torch.cli import train as train_cli
+
+            zero_counts()
+            t0 = time.perf_counter()
+            trainer = train_cli.main([*cli, "--device", str(device)])
+            record["train"] = {"launches": read_counts(), "steps": trainer.update.micro_step,
+                               "wall_s": time.perf_counter() - t0,
+                               "run": str(trainer.cfg.save_path)}
+        (out / f"rank{mesh.rank}.json").write_text(json.dumps(record))
+        mesh.barrier()
+    finally:
+        parallel.shutdown()
+
+
+if __name__ == "__main__":
+    main()

@@ -16,6 +16,18 @@ supervised, depth-as-classification and self-supervised paths
       --network dispnet --loss selfsup --stochastic-photo 2 -f 100 \\
       --loader device --steps-per-dispatch 4
 
+Data-parallel on N ranks, one process a rank, through PyTorch's launcher
+(``-b`` stays the global batch, which N must divide; rank r trains on the
+rows [r B / N, (r + 1) B / N) of each batch; ``parallel/mesh.py``):
+
+  python -m torch.distributed.run --nproc-per-node 2 \
+      -m supervised_dispnet_tpu_torch.cli.train /data/kitti_packed \
+      --network disp_res_50 --loss berhu -b 8
+
+Rank r runs on ``cuda:{LOCAL_RANK}`` over NCCL, or over gloo where ranks
+share a card or run on the CPU (``--device cpu``). Rank 0 alone prints and
+writes the logs and checkpoints.
+
 Reads a packed dataset root (``data/packed.py``) or a dump tree of JPEG
 frames (``data/prepare_train_data.py``; decoded on the ``-j`` host threads).
 Runs on the card unless
@@ -185,7 +197,8 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     argv = ["--remat=full" if tok == "--remat" and (i + 1 == len(argv)
                                                     or argv[i + 1] not in REMAT_CHOICES)
             else tok for i, tok in enumerate(argv)]
-    return parse_args_or_raise(build_parser(), argv, _LATER_FLAGS)
+    return parse_args_or_raise(build_parser(), argv, _LATER_FLAGS,
+                               where="ROADMAP.md (queue item A6b)")
 
 
 def load_pretrained_encoder(model, path: str | Path, network: str) -> None:
@@ -236,19 +249,37 @@ def load_pretrained_exppose(pose_model, path: str | Path) -> None:
 
 
 def main(argv: list[str] | None = None):
-    """Train; returns the ``Trainer``."""
+    """Train; returns the ``Trainer``. Under ``torch.distributed.run`` this
+    process is one rank: it joins the process group first and leaves it at
+    the end."""
     args = parse_args(argv)
     if args.pretrained_encoder and not args.network.startswith("disp_res"):
         raise ValueError("--pretrained-encoder applies to disp_res* networks, "
                          f"not {args.network}")
 
+    import torch.distributed as dist
+
+    from supervised_dispnet_tpu_torch.parallel import mesh as parallel
+
+    joins = parallel.launched() and not dist.is_initialized()
+    device, mesh = parallel.init_from_env(args.device)
+    try:
+        return _train(args, device, mesh)
+    finally:
+        if joins:
+            parallel.shutdown()
+
+
+def _train(args: argparse.Namespace, device, mesh):
     import torch
 
     from supervised_dispnet_tpu_torch.models import PoseExpNet, get_disp_net
     from supervised_dispnet_tpu_torch.training.trainer import Trainer, TrainerConfig
     from supervised_dispnet_tpu_torch.utils.checkpoint import load_torch_state_dict
 
-    save_path = run_dir(args.checkpoints_dir, args.name, args.resume)
+    # rank 0's run directory (its clock names a new one) on every rank
+    save_path = mesh.broadcast_object(run_dir(args.checkpoints_dir, args.name, args.resume)
+                                      if mesh.is_main else None)
     cfg = TrainerConfig(
         data=args.data, save_path=str(save_path), loss=args.loss, epochs=args.epochs, epoch_size=args.epoch_size,
         batch_size=args.batch_size, lr=args.lr, beta1=args.momentum,
@@ -271,7 +302,7 @@ def main(argv: list[str] | None = None):
     model = get_disp_net(args.network, head=head, num_bins=args.num_bins,
                          multiscale_classification=args.multiscale_classification,
                          fused_upsample=args.fused_upsample, remat=args.remat,
-                         seed=args.seed, device=args.device)
+                         seed=args.seed, device=device)
     pose_model = None
     if args.loss == "selfsup":
         # a stream of its own, so the disp net's weights do not depend on it
@@ -286,11 +317,13 @@ def main(argv: list[str] | None = None):
         if pose_model is None:
             raise ValueError("--pretrained-exppose needs --loss selfsup")
         load_pretrained_exppose(pose_model, args.pretrained_exppose)
-    trainer = Trainer(cfg, model, pose_model, device=args.device)
-    print(f"=> saving to {save_path}")
+    trainer = Trainer(cfg, model, pose_model, device=device, mesh=mesh)
+    if mesh.is_main:
+        print(f"=> saving to {save_path}")
     best = trainer.fit()
     metric = "abs_rel" if trainer.val_with_gt else "photo_loss"
-    print(f"=> best val {metric} {best:.4f}")
+    if mesh.is_main:
+        print(f"=> best val {metric} {best:.4f}")
     return trainer
 
 

@@ -46,6 +46,16 @@
 //     16-byte loads and stores where every pointer allows (a scalar tail).
 //     c_s, the count and g are read from device memory: nothing goes back
 //     to the host.
+//   - berhu_forward_given_c_group_kernel is the forward with given
+//     thresholds: c_s is read from device memory, so there is no pass A.
+//     One cooperative launch: pass B into per-block partials, one barrier,
+//     block 0 reduces them in a fixed order and writes each problem's sum
+//     of terms and the mask's sum, not divided. A data-parallel step needs
+//     it: c and the sums must be the global batch's, so the wrapper takes
+//     the max of the first launch's c over the ranks, launches this, and
+//     sums its sums over the ranks before it divides (ops/cuda/losses.py
+//     berhu_stats). The backward reads the global count and c as it reads
+//     the local ones.
 // The problem table (pointers, weights) is a kernel parameter passed by
 // value (__grid_constant__): no host-to-device copy. The single-problem
 // entries of ops/cuda/losses.py are the same launches with one problem of
@@ -267,6 +277,62 @@ __global__ void __launch_bounds__(kThreads) berhu_forward_group_kernel(
     }
 }
 
+// The forward with given thresholds: c[s] for problem s (device memory).
+// scratch: [np + 1][gridDim.x] block sums; out: the sum of problem s's terms
+// at out[s], the mask's sum at out[np] (np + 1 floats, unnormalised).
+template <typename M, int P>
+__global__ void __launch_bounds__(kThreads) berhu_forward_given_c_group_kernel(
+        const __grid_constant__ BerhuTable t, const float* __restrict__ gt,
+        const M* __restrict__ mask, long n, int np, const float* __restrict__ given_c,
+        float* out, float* scratch) {
+    cg::grid_group grid = cg::this_grid();
+    const int nblocks = gridDim.x;
+    const long stride = static_cast<long>(nblocks) * kThreads;
+    float c[P], acc[P + 1];
+#pragma unroll
+    for (int s = 0; s < P; ++s) c[s] = s < np ? given_c[s] : 1.0f;
+#pragma unroll
+    for (int s = 0; s <= P; ++s) acc[s] = 0.0f;
+    for (long i = static_cast<long>(blockIdx.x) * kThreads + threadIdx.x; i < n; i += stride) {
+        const float g = gt[i];
+        const float m = mask_at(mask, i);
+#pragma unroll
+        for (int s = 0; s < P; ++s) {
+            if (s < np) acc[s] += berhu_term(t.pred[s][i], g, m, c[s]);
+        }
+        acc[P] += m;
+    }
+    block_allreduce(acc, SumOp());
+    if (threadIdx.x == 0) {
+#pragma unroll
+        for (int s = 0; s < P; ++s) {
+            if (s < np) scratch[s * nblocks + blockIdx.x] = acc[s];
+        }
+        scratch[np * nblocks + blockIdx.x] = acc[P];
+    }
+    grid.sync();
+
+    // block 0: the partials in a fixed order
+    if (blockIdx.x != 0) return;
+#pragma unroll
+    for (int s = 0; s <= P; ++s) acc[s] = 0.0f;
+    for (int b = threadIdx.x; b < nblocks; b += kThreads) {
+#pragma unroll
+        for (int s = 0; s < P; ++s) {
+            if (s < np) acc[s] += __ldcg(scratch + s * nblocks + b);
+        }
+        acc[P] += __ldcg(scratch + np * nblocks + b);
+    }
+    block_allreduce(acc, SumOp());
+    if (threadIdx.x == 0) {
+#pragma unroll
+        for (int s = 0; s < P; ++s) {
+            if (s < np) out[s] = acc[s];
+        }
+        out[np] = acc[P];
+    }
+}
+
 // stats: the forward's [loss, count, c] of each problem; grad: the upstream
 // gradient of the total (one float). vec: every pointer allows 16-byte
 // access, so the first n / 4 quads go as float4 and the rest as scalars.
@@ -393,6 +459,48 @@ cudaError_t dispatch_forward(const BerhuTable& t, int np, const float* gt, const
                                            scratch_blocks, device, stream);
 }
 
+template <typename M, int P>
+cudaError_t launch_given_c(const BerhuTable& t, int np, const float* gt, const M* mask, long n,
+                           const float* c, float* out, float* scratch, int scratch_blocks,
+                           int device, cudaStream_t stream) {
+    static int cache[kMaxDevices] = {};
+    const void* fn = reinterpret_cast<const void*>(&berhu_forward_given_c_group_kernel<M, P>);
+    int blocks = 0;
+    cudaError_t err = coresident_blocks(fn, device, cache, &blocks);
+    if (err != cudaSuccess) return err;
+    // the forward's grid: kCacheItems elements a thread where that fits
+    const long work = (n + kThreads * kCacheItems - 1) / (kThreads * kCacheItems);
+    long grid = blocks < work ? blocks : work;
+    grid = grid < scratch_blocks ? grid : scratch_blocks;
+    grid = grid < 1 ? 1 : grid;
+    void* args[] = {const_cast<BerhuTable*>(&t), &gt, &mask, &n, &np, &c, &out, &scratch};
+    const cudaError_t launch = cudaLaunchCooperativeKernel(
+        fn, dim3(static_cast<unsigned>(grid)), dim3(kThreads), args, 0, stream);
+    const cudaError_t last = cudaGetLastError();
+    return launch != cudaSuccess ? launch : last;
+}
+
+template <typename M>
+cudaError_t dispatch_given_c(const BerhuTable& t, int np, const float* gt, const void* mask,
+                             long n, const float* c, float* out, float* scratch,
+                             int scratch_blocks, int device, cudaStream_t stream) {
+    const M* m = static_cast<const M*>(mask);
+    if (np <= 1) {
+        return launch_given_c<M, 1>(t, np, gt, m, n, c, out, scratch, scratch_blocks, device,
+                                    stream);
+    }
+    if (np <= 2) {
+        return launch_given_c<M, 2>(t, np, gt, m, n, c, out, scratch, scratch_blocks, device,
+                                    stream);
+    }
+    if (np <= 4) {
+        return launch_given_c<M, 4>(t, np, gt, m, n, c, out, scratch, scratch_blocks, device,
+                                    stream);
+    }
+    return launch_given_c<M, kMaxProblems>(t, np, gt, m, n, c, out, scratch, scratch_blocks,
+                                           device, stream);
+}
+
 }  // namespace
 
 extern "C" {
@@ -420,6 +528,29 @@ int berhu_forward_many(const BerhuTable* table, int np, const float* gt, const v
     }
     return dispatch_forward<uint8_t>(*table, np, gt, mask, n, c_frac, out, scratch,
                                      scratch_blocks, device, strm);
+}
+
+// Forward of a group with given thresholds c[0, np) (device memory), in one
+// cooperative launch. `out` receives each problem's sum of terms and the
+// mask's sum (np + 1 floats, unnormalised); `scratch` holds (np + 1) x
+// scratch_blocks floats. Returns the launch's CUDA error as an int.
+int berhu_forward_given_c_many(const BerhuTable* table, int np, const float* gt,
+                               const void* mask, int mask_is_float, long n, const float* c,
+                               float* out, float* scratch, int scratch_blocks, int device,
+                               void* stream) {
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return err;
+    if (bad_group(table, np, n, gt, mask, false) || c == nullptr || out == nullptr
+        || scratch == nullptr || scratch_blocks < 1) {
+        return cudaErrorInvalidValue;
+    }
+    cudaStream_t strm = static_cast<cudaStream_t>(stream);
+    if (mask_is_float) {
+        return dispatch_given_c<float>(*table, np, gt, mask, n, c, out, scratch, scratch_blocks,
+                                       device, strm);
+    }
+    return dispatch_given_c<uint8_t>(*table, np, gt, mask, n, c, out, scratch, scratch_blocks,
+                                     device, strm);
 }
 
 // Backward of a group: each problem's dpred (the table's dpred rows) from the

@@ -11,7 +11,10 @@ LiDAR points). Then brightness, contrast and saturation jitter and, with
 normalisation (the reference's 0.5 / 0.5, or ImageNet's mean and std).
 
 Randomness comes from a ``torch.Generator``; ``draws=`` takes the random
-numbers from the caller instead (tests pass the JAX package's draws). The
+numbers from the caller instead (tests pass the JAX package's draws). On a
+data-parallel mesh (``parallel/mesh.py``) the draws are those of the global
+batch, from a generator seeded alike on every rank, and each rank keeps its
+rows: row for row the draws of one process that takes the whole batch. The
 hue angle is drawn after every other number, so turning hue on leaves the
 other draws as they were (the JAX package folds its hue key out of the
 others for the same reason).
@@ -24,6 +27,8 @@ import functools
 
 import numpy as np
 import torch
+
+from supervised_dispnet_tpu_torch.parallel.mesh import Mesh
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
@@ -107,17 +112,24 @@ def augment_batch(
     config: AugmentConfig = AugmentConfig(),
     generator: torch.Generator | None = None,
     draws: dict[str, torch.Tensor] | None = None,
+    mesh: Mesh | None = None,
 ):
     """Augment a batch of snippets.
 
     imgs: (B, S, H, W, 3) float in [0, 1]; intrinsics: (B, 3, 3); depth:
     optional (B, H, W) sparse GT (zeros = missing). Returns (imgs,
-    intrinsics[, depth]) with imgs normalised; same shapes.
+    intrinsics[, depth]) with imgs normalised; same shapes. On ``mesh`` the
+    batch is this rank's rows (``Mesh.rows``) of a global batch of B x
+    ranks, and ``draws``, given or drawn, are the global batch's.
     """
     B, S, H, W, _ = imgs.shape
     dev, f32 = imgs.device, torch.float32
+    ranks = mesh.size if mesh is not None else 1
     if draws is None:
-        draws = draw_augment(B, H, W, config, generator, dev)
+        draws = draw_augment(B * ranks, H, W, config, generator, dev)
+    if ranks > 1:
+        rows = mesh.rows(B * ranks)
+        draws = {k: v[rows] for k, v in draws.items()}
     sx, sy = draws["scale_x"], draws["scale_y"]
     ox, oy, flip = draws["ox"], draws["oy"], draws["flip"]
 

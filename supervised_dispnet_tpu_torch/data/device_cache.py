@@ -41,12 +41,17 @@ class DeviceResidentSequence:
     stacks k of them, (k, B[, R]), and an epoch is a whole number of items.
     ``upload`` sends an item's indices to the device in one copy, and
     ``gather`` builds the batch there: {'tgt', 'intrinsics'[, 'ref_imgs']
-    [, 'depth']}."""
+    [, 'depth']}. With ``rows`` (``parallel.Mesh.rows``) each index batch is
+    those rows of the global batch of ``batch_size``: a data-parallel rank
+    holds the whole split and gathers its own rows. (The JAX trainer shards
+    the frame axis over its mesh instead: the memory differs, the batches
+    do not.)"""
 
     def __init__(self, root: str | Path, batch_size: int, device: str | torch.device,
                  train: bool = True, sequence_length: int = 3, with_depth: bool = False,
                  seed: int = 0, shuffle: bool = True, epoch_size: int | None = None,
-                 hbm_budget_bytes: int = 10 * 1024 ** 3, steps_per_item: int = 1):
+                 hbm_budget_bytes: int = 10 * 1024 ** 3, steps_per_item: int = 1,
+                 rows: slice | None = None):
         # the dataset's own shuffle with the same seed: the sample order, and
         # so every batch, is BatchLoader(PackedSequenceDataset)'s
         ds = PackedSequenceDataset(root, seed=seed, train=train,
@@ -55,6 +60,7 @@ class DeviceResidentSequence:
         self.device = torch.device(device)
         self.sequence_length = sequence_length
         self.batch_size = batch_size
+        self.rows = rows
         self.shuffle = shuffle
         self.seed = seed
         self.epoch = 0
@@ -87,6 +93,8 @@ class DeviceResidentSequence:
         return self.epoch_size // self.steps_per_item
 
     def _index_batch(self, sel: np.ndarray) -> dict[str, np.ndarray]:
+        if self.rows is not None:
+            sel = sel[self.rows]
         out = {"tgt_idx": self._tgt[sel], "scene_idx": self._scene[sel]}
         if self.sequence_length > 1:
             out["ref_idx"] = self._refs[sel]

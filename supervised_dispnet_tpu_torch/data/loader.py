@@ -21,12 +21,17 @@ import numpy as np
 
 
 class BatchLoader:
-    """Iterates dict batches over a dataset with ``__len__`` and ``get_batch``."""
+    """Iterates dict batches over a dataset with ``__len__`` and ``get_batch``.
+    With ``rows`` (a slice of a batch, ``parallel.Mesh.rows``), each batch
+    is those rows of the global batch of ``batch_size``: a data-parallel
+    rank gathers (decodes) only its own rows, of the batches one process
+    would build."""
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = True,
                  num_workers: int = 4, prefetch: int = 4, seed: int = 0,
-                 epoch_size: int | None = None):
+                 epoch_size: int | None = None, rows: slice | None = None):
         self.dataset = dataset
+        self.rows = rows
         self.num_workers = max(1, num_workers)
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -46,6 +51,8 @@ class BatchLoader:
         self.epoch += 1
         batches = [order[i * self.batch_size:(i + 1) * self.batch_size]
                    for i in range(self.epoch_size)]
+        if self.rows is not None:
+            batches = [b[self.rows] for b in batches]
 
         q: queue.Queue = queue.Queue(maxsize=self.prefetch)
         stop = threading.Event()

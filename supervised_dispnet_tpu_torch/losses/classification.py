@@ -4,7 +4,8 @@ The port of ``supervised_dispnet_tpu/losses/classification.py``. Logits are
 (B, H, W, K) over K depth bins; ``gt_depth`` and ``mask`` are (B, H, W).
 The CE goes through the CUDA kernels (``ops/cuda/classification.py``) for
 CUDA tensors and through ``depth_classification_loss_plain`` for CPU
-tensors.
+tensors. On a data-parallel mesh (``parallel/mesh.py``) its sum and count
+are the global batch's.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import torch
 
 from supervised_dispnet_tpu_torch.ops.cuda.classification import cross_entropy_cuda
 from supervised_dispnet_tpu_torch.ops.resize import resize_bilinear
+from supervised_dispnet_tpu_torch.parallel.mesh import global_sums
 
 
 def _f32(x: float, like: torch.Tensor) -> torch.Tensor:
@@ -100,7 +102,8 @@ def depth_classification_loss_plain(logits: torch.Tensor, gt_depth: torch.Tensor
     logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
     nll = -torch.gather(logp, -1, labels.to(torch.int64)[..., None])[..., 0]
     m = mask.to(torch.float32)
-    return (nll * m).sum() / m.sum().clamp(min=1.0)
+    total, count = global_sums((nll * m).sum(), m.sum())
+    return total / count.clamp(min=1.0)
 
 
 def depth_classification_loss(logits: torch.Tensor, gt_depth: torch.Tensor | None,

@@ -1,9 +1,12 @@
 """Depth evaluation metrics: the masked Eigen-split error suite, the port of
-``supervised_dispnet_tpu/losses/metrics.py``."""
+``supervised_dispnet_tpu/losses/metrics.py``. On a data-parallel mesh
+(``parallel/mesh.py``) the masked means are the global batch's."""
 
 from __future__ import annotations
 
 import torch
+
+from supervised_dispnet_tpu_torch.parallel.mesh import global_sums
 
 
 def compute_errors(gt: torch.Tensor, pred: torch.Tensor,
@@ -13,23 +16,23 @@ def compute_errors(gt: torch.Tensor, pred: torch.Tensor,
     gt = gt.to(torch.float32)
     pred = pred.to(torch.float32)
     m = torch.ones_like(gt) if mask is None else mask.to(torch.float32)
-    count = m.sum().clamp(min=1.0)
-
-    def mmean(x: torch.Tensor) -> torch.Tensor:
-        return (x * m).sum() / count
-
     safe_gt = gt.clamp(min=1e-6)
     safe_pred = pred.clamp(min=1e-6)
     thresh = torch.maximum(safe_gt / safe_pred, safe_pred / safe_gt)
     diff = gt - pred
     dlog = safe_gt.log() - safe_pred.log()
-    return {
-        "abs_diff": mmean(diff.abs()),
-        "abs_rel": mmean(diff.abs() / safe_gt),
-        "sq_rel": mmean(diff * diff / safe_gt),
-        "rmse": mmean(diff * diff).sqrt(),
-        "rmse_log": mmean(dlog * dlog).sqrt(),
-        "a1": mmean((thresh < 1.25).to(torch.float32)),
-        "a2": mmean((thresh < 1.25 ** 2).to(torch.float32)),
-        "a3": mmean((thresh < 1.25 ** 3).to(torch.float32)),
+    terms = {
+        "abs_diff": diff.abs(),
+        "abs_rel": diff.abs() / safe_gt,
+        "sq_rel": diff * diff / safe_gt,
+        "rmse": diff * diff,
+        "rmse_log": dlog * dlog,
+        "a1": (thresh < 1.25).to(torch.float32),
+        "a2": (thresh < 1.25 ** 2).to(torch.float32),
+        "a3": (thresh < 1.25 ** 3).to(torch.float32),
     }
+    *sums, count = global_sums(*((x * m).sum() for x in terms.values()), m.sum())
+    count = count.clamp(min=1.0)
+    out = {k: s / count for k, s in zip(terms, sums)}
+    out["rmse"], out["rmse_log"] = out["rmse"].sqrt(), out["rmse_log"].sqrt()
+    return out

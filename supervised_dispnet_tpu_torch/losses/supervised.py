@@ -4,6 +4,10 @@ The port of ``supervised_dispnet_tpu/losses/supervised.py``. ``pred`` and
 ``gt`` are (B, H, W) metric depth; ``mask`` is a (B, H, W) bool/float
 validity mask (KITTI GT is sparse LiDAR). Every reduction is a masked mean
 with an explicit valid-pixel count. Each loss returns a 0-d float32 tensor.
+
+On a data-parallel mesh (``parallel/mesh.py``) every masked sum and count,
+and BerHu's threshold, are taken over the global batch, as the JAX mesh
+takes them: the scale-invariant loss is not linear in the ranks' sums.
 """
 
 from __future__ import annotations
@@ -14,11 +18,13 @@ import torch
 
 from supervised_dispnet_tpu_torch.ops.cuda.losses import berhu_loss_cuda, berhu_loss_many_cuda
 from supervised_dispnet_tpu_torch.ops.resize import interpolate_bilinear
+from supervised_dispnet_tpu_torch.parallel.mesh import all_reduce_max, global_sums
 
 
 def _masked_mean(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     m = mask.to(torch.float32)
-    return (x.to(torch.float32) * m).sum() / m.sum().clamp(min=1.0)
+    total, count = global_sums((x.to(torch.float32) * m).sum(), m.sum())
+    return total / count.clamp(min=1.0)
 
 
 def l1_loss(pred: torch.Tensor, gt: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -27,18 +33,23 @@ def l1_loss(pred: torch.Tensor, gt: torch.Tensor, mask: torch.Tensor) -> torch.T
 
 
 def berhu_loss_plain(pred: torch.Tensor, gt: torch.Tensor, mask: torch.Tensor,
-                     c_frac: float = 0.2) -> torch.Tensor:
+                     c_frac: float = 0.2, c: torch.Tensor | None = None) -> torch.Tensor:
     """Reverse Huber (BerHu) with adaptive threshold c = c_frac * max|d|,
     in plain PyTorch: the reference the CUDA kernel is held against, and the
     version that runs on the CPU.
 
     L(d) = |d|                 if |d| <= c
          = (d^2 + c^2) / (2c)  otherwise
+
+    ``c`` (a 0-d float32 tensor) gives the threshold instead: the plain
+    version of the kernel's given-threshold mode. On a mesh, max|d| is the
+    global batch's (max(c_frac M, 1e-6) commutes with a max over ranks).
     """
     m = mask.to(torch.float32)
     d = (pred - gt).to(torch.float32) * m
     absd = d.abs()
-    c = (c_frac * absd.max()).clamp(min=1e-6).detach()
+    if c is None:
+        c = all_reduce_max((c_frac * absd.max()).clamp(min=1e-6).detach())
     quad = (d * d + c * c) / (2.0 * c)
     return _masked_mean(torch.where(absd <= c, absd, quad), mask)
 
@@ -59,10 +70,11 @@ def scale_invariant_loss(pred: torch.Tensor, gt: torch.Tensor, mask: torch.Tenso
     """Eigen et al. (2014) scale-invariant log loss:
     mean(d^2) - lam * mean(d)^2 with d = log(pred) - log(gt) over valid pixels."""
     m = mask.to(torch.float32)
-    count = m.sum().clamp(min=1.0)
     d = (pred.to(torch.float32).clamp(min=1e-6).log()
          - gt.to(torch.float32).clamp(min=1e-6).log()) * m
-    return (d * d).sum() / count - lam * (d.sum() / count) ** 2
+    sq, lin, count = global_sums((d * d).sum(), d.sum(), m.sum())
+    count = count.clamp(min=1.0)
+    return sq / count - lam * (lin / count) ** 2
 
 
 def grouped_route(loss_fn: Callable, device_type: str) -> Callable | None:

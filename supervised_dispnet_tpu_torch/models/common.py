@@ -43,6 +43,7 @@ from torch.utils.checkpoint import (
     CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts)
 
 from supervised_dispnet_tpu_torch.ops.fused_upconv import upconv2x_fused
+from supervised_dispnet_tpu_torch.parallel.mesh import active_mesh, all_reduce_sum
 
 # Disparity head output scaling (reference: DispNetS alpha/beta constants).
 DISP_ALPHA = 10.0
@@ -208,6 +209,8 @@ class BatchNorm2d(nn.BatchNorm2d):
         # weight and bias) and comes back bf16: flax's rounding points
         if not self.training:
             y = super().forward(x)
+        elif active_mesh() is not None:
+            y = self._global_batch_norm(x)
         else:
             if not _RECOMPUTING.get():
                 with torch.no_grad():
@@ -218,6 +221,29 @@ class BatchNorm2d(nn.BatchNorm2d):
                     self.num_batches_tracked += 1
             y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
         return y if self.compute_dtype is None else y.to(self.compute_dtype)
+
+    def _global_batch_norm(self, x: torch.Tensor) -> torch.Tensor:
+        """Train mode on a data-parallel mesh: the statistics of the global
+        batch, as the JAX mesh takes them (flax's fast variance, E[x^2] -
+        E[x]^2 clipped at 0, in float32), from one all-reduce of this rank's
+        sums and count; the gradient flows through the sums to every
+        rank's rows."""
+        xf = x.to(torch.float32)
+        C = x.shape[1]
+        count = torch.full((1,), xf.numel() // C, dtype=torch.float32, device=x.device)
+        sums = all_reduce_sum(torch.cat([xf.sum(dim=(0, 2, 3)), (xf * xf).sum(dim=(0, 2, 3)),
+                                         count]))
+        n = sums[2 * C]
+        mean = sums[:C] / n
+        var = (sums[C:2 * C] / n - mean * mean).clamp(min=0.0)
+        if not _RECOMPUTING.get():
+            with torch.no_grad():
+                self.running_mean.lerp_(mean.detach(), self.momentum)
+                self.running_var.lerp_(var.detach(), self.momentum)
+                self.num_batches_tracked += 1
+        scale = torch.rsqrt(var + self.eps) * self.weight
+        y = (xf - mean[:, None, None]) * scale[:, None, None] + self.bias[:, None, None]
+        return y.to(x.dtype)
 
 
 def set_compute_dtype(model: nn.Module, dtype: torch.dtype | None) -> bool:

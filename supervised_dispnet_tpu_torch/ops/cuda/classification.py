@@ -18,6 +18,12 @@ contiguous first. The backward writes dL/dlogits in the logits' layout.
 ``vector_path`` says, from shapes, strides and addresses alone, whether the
 kernels take 4 pixels a thread with 16-byte accesses or one pixel a thread.
 
+On a data-parallel mesh (``parallel/mesh.py``) the loss is the global
+batch's: the wrapper takes each rank's sum (the forward's loss times its
+count) and count, sums them over the ranks and hands the backward the
+global count and the upstream gradient summed over the ranks. The kernels
+are the same, one launch each way.
+
 ``ce_fwd_launches`` and ``ce_bwd_launches`` count the launches of the
 forward and the backward entry, so a run can show that it went through the
 kernels.
@@ -31,6 +37,7 @@ import math
 import torch
 
 from supervised_dispnet_tpu_torch.ops.cuda import _build
+from supervised_dispnet_tpu_torch.parallel.mesh import Mesh, active_mesh
 
 _P = ctypes.c_void_p
 _L = ctypes.c_long
@@ -213,19 +220,33 @@ def ce_backward_plain(logits: torch.Tensor, labels: torch.Tensor, mask: torch.Te
     return (p - onehot.to(torch.float32)) * w[..., None]
 
 
+def global_stats(stats: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """A rank's ``[loss, count]`` -> the global batch's: the rank's sum
+    (loss x max(count, 1), within a float32 rounding of the sum the forward
+    divided) and count summed over the ranks, then divided."""
+    sums = torch.stack([stats[0] * stats[1].clamp(min=1.0), stats[1]])
+    mesh.all_reduce_(sums)
+    return torch.stack([sums[0] / sums[1].clamp(min=1.0), sums[1]])
+
+
 class _CrossEntropyFunction(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, logits, labels, mask):
+    def forward(ctx, logits, labels, mask, mesh):
         stats, lse = ce_forward(logits, labels, mask)
+        if mesh is not None:
+            stats = global_stats(stats, mesh)
+        ctx.mesh = mesh
         ctx.save_for_backward(logits, labels, mask, lse, stats)
         return stats[0]
 
     @staticmethod
     def backward(ctx, g):
         logits, labels, mask, lse, stats = ctx.saved_tensors
-        dlogits = ce_backward(logits, labels, mask, lse, stats,
-                              g.to(torch.float32).contiguous())
-        return dlogits if ctx.needs_input_grad[0] else None, None, None
+        g = g.to(torch.float32).contiguous()
+        if ctx.mesh is not None:
+            g = ctx.mesh.all_reduce_(g.clone())
+        dlogits = ce_backward(logits, labels, mask, lse, stats, g)
+        return dlogits if ctx.needs_input_grad[0] else None, None, None, None
 
 
 def cross_entropy_cuda(logits: torch.Tensor, labels: torch.Tensor,
@@ -237,4 +258,4 @@ def cross_entropy_cuda(logits: torch.Tensor, labels: torch.Tensor,
     ``losses.classification.depth_classification_loss_plain``."""
     logits, _ = kernel_layout(logits.to(torch.float32))
     return _CrossEntropyFunction.apply(logits, labels.to(torch.int32).contiguous(),
-                                       mask.contiguous())
+                                       mask.contiguous(), active_mesh())

@@ -15,7 +15,18 @@ a step makes one launch each way. The single-problem entries
 (``berhu_forward_stats``, ``berhu_backward``, ``berhu_loss_cuda``) are the
 same launches with one problem of weight 1.
 
-``berhu_fwd_launches`` and ``berhu_bwd_launches`` count the launches of the
+The forward has a second mode, a given threshold
+(``berhu_forward_given_c``): each problem's c is read from a device buffer,
+and the launch sums the loss terms and the mask, unnormalised. On a
+data-parallel mesh (``parallel/mesh.py``) c and the sums must be the global
+batch's, so a grouped loss there makes two forward launches: the forward
+for this rank's c, a max of c over the ranks, the given-c forward, and a
+sum over the ranks; the backward, unchanged, reads the global count and c
+and the upstream gradient summed over the ranks. Off a mesh the loss is the
+one forward launch it always was.
+
+``berhu_fwd_launches``, ``berhu_fwd_given_c_launches`` and
+``berhu_bwd_launches`` count the launches of the forward, the given-c
 forward and the backward kernel, so a run can show that it went through
 them; ``berhu_fwd_problems`` counts the problems the forward launches
 covered.
@@ -31,6 +42,7 @@ from collections.abc import Sequence
 import torch
 
 from supervised_dispnet_tpu_torch.ops.cuda import _build
+from supervised_dispnet_tpu_torch.parallel.mesh import Mesh, active_mesh
 
 MAX_PROBLEMS = 8  # csrc/berhu.cu kMaxProblems
 # the forward's grid takes at most this many blocks (the scratch holds their
@@ -47,11 +59,15 @@ _SIGNATURES = {
     # scratch_blocks, device, stream
     "berhu_forward_many": [_P, _I, _P, _P, _I, ctypes.c_long, ctypes.c_float, _P, _P, _I,
                            _I, _P],
+    # table, np, gt, mask, mask_is_float, n, c, out, scratch, scratch_blocks,
+    # device, stream
+    "berhu_forward_given_c_many": [_P, _I, _P, _P, _I, ctypes.c_long, _P, _P, _P, _I, _I, _P],
     # table, np, gt, mask, mask_is_float, n, stats, grad, device, stream
     "berhu_backward_many": [_P, _I, _P, _P, _I, ctypes.c_long, _P, _P, _I, _P],
 }
 
 berhu_fwd_launches = 0
+berhu_fwd_given_c_launches = 0
 berhu_bwd_launches = 0
 berhu_fwd_problems = 0
 
@@ -140,6 +156,48 @@ def berhu_forward_many(preds: Sequence[torch.Tensor], gt: torch.Tensor, mask: to
     return buf[:3 * n + 1]
 
 
+def berhu_forward_given_c(preds: Sequence[torch.Tensor], gt: torch.Tensor, mask: torch.Tensor,
+                          c: torch.Tensor) -> torch.Tensor:
+    """Launch the given-threshold forward over a group of P predictions,
+    with problem s's threshold ``c[s]`` (a float32 tensor of P on the card);
+    returns the device tensor (P + 1,): each problem's sum of mask-weighted
+    BerHu terms, then the mask's sum, both unnormalised (this launch's rows
+    only, for a sum over ranks)."""
+    global berhu_fwd_given_c_launches
+    mask, mask_is_float, index = _check_group(preds, gt, mask, [1.0] * len(preds))
+    n = len(preds)
+    if (c.get_device() != index or c.dtype is not torch.float32 or not c.is_contiguous()
+            or c.numel() != n):
+        raise ValueError(f"berhu kernel: c must be a contiguous float32 tensor of {n} floats "
+                         f"on cuda:{index}")
+    # one allocation: the sums, then the scratch of the block partials
+    buf = torch.empty(n + 1 + (n + 1) * SCRATCH_BLOCKS, dtype=torch.float32, device=gt.device)
+    out = buf.data_ptr()
+    lib = _lib()
+    code = lib.berhu_forward_given_c_many(
+        _table(preds, (), [1.0] * n), n, gt.data_ptr(), mask.data_ptr(), int(mask_is_float),
+        gt.numel(), c.data_ptr(), out, out + 4 * (n + 1), SCRATCH_BLOCKS, index,
+        _stream(index))
+    berhu_fwd_given_c_launches += 1
+    _build.check(lib, "berhu", "berhu_forward_given_c_many", code)
+    return buf[:n + 1]
+
+
+def stats_from_sums(sums: torch.Tensor, c: torch.Tensor,
+                    weights: Sequence[float]) -> torch.Tensor:
+    """The forward's layout, (3P + 1,) ``[loss, count, c]`` of each problem
+    and the weighted total (summed in the plain loop's order), from the
+    given-c forward's sums (P + 1,) and the thresholds ``c`` (P,)."""
+    n = len(weights)
+    count = sums[n]
+    loss = sums[:n] / count.clamp(min=1.0)
+    total = torch.zeros((), dtype=torch.float32, device=sums.device)
+    for s, w in enumerate(weights):
+        total = total + w * loss[s]
+    return torch.cat([torch.stack([loss, count.expand(n), c], dim=1).reshape(-1),
+                      total[None]])
+
+
 def berhu_backward_many(preds: Sequence[torch.Tensor], gt: torch.Tensor, mask: torch.Tensor,
                         stats: torch.Tensor, weights: Sequence[float],
                         grad: torch.Tensor) -> list[torch.Tensor]:
@@ -184,38 +242,65 @@ def berhu_backward(pred: torch.Tensor, gt: torch.Tensor, mask: torch.Tensor,
     return berhu_backward_many((pred,), gt, mask, stats, (1.0,), grad)[0]
 
 
+def berhu_stats(preds: Sequence[torch.Tensor], gt: torch.Tensor, mask: torch.Tensor,
+                weights: Sequence[float], c_frac: float = 0.2, c: torch.Tensor | None = None,
+                mesh: Mesh | None = None) -> torch.Tensor:
+    """The forward's ``[loss, count, c]`` of each problem and the weighted
+    total, (3P + 1,): one forward launch; with ``c`` given, one given-c
+    launch; on ``mesh`` (more than one rank), over the global batch: the
+    forward for this rank's c (unless given), the max of c over the ranks,
+    the given-c forward and the sum of its sums over the ranks."""
+    if c is None:
+        out = berhu_forward_many(preds, gt, mask, weights, c_frac)
+        if mesh is None:
+            return out
+        c = mesh.all_reduce_(out[2:3 * len(preds):3].contiguous(), "max")
+    sums = berhu_forward_given_c(preds, gt, mask, c)
+    if mesh is not None:
+        mesh.all_reduce_(sums)
+    return stats_from_sums(sums, c, weights)
+
+
 class _BerhuManyFunction(torch.autograd.Function):
     """One node for a group: the grouped forward gives the weighted total,
     the grouped backward every prediction's gradient, and gt's gradient
     (-sum of them) where gt takes one. Inputs: gt, mask, weights, c_frac,
-    then the predictions."""
+    the given thresholds (or None), the mesh (or None), then the
+    predictions. On a mesh the total is the global batch's, and the
+    backward takes the upstream gradient summed over the ranks (the
+    backward of a sum over ranks)."""
 
     @staticmethod
-    def forward(ctx, gt, mask, weights, c_frac, *preds):
-        out = berhu_forward_many(preds, gt, mask, weights, c_frac)
+    def forward(ctx, gt, mask, weights, c_frac, c, mesh, *preds):
+        out = berhu_stats(preds, gt, mask, weights, c_frac, c, mesh)
         ctx.weights = weights
+        ctx.mesh = mesh
         ctx.save_for_backward(gt, mask, out, *preds)
         return out[-1]
 
     @staticmethod
     def backward(ctx, g):
         gt, mask, out, *preds = ctx.saved_tensors
-        dpreds = berhu_backward_many(preds, gt, mask, out, ctx.weights,
-                                     g.to(torch.float32).contiguous())
+        g = g.to(torch.float32).contiguous()
+        if ctx.mesh is not None:
+            g = ctx.mesh.all_reduce_(g.clone())
+        dpreds = berhu_backward_many(preds, gt, mask, out, ctx.weights, g)
         need = ctx.needs_input_grad
         dgt = -functools.reduce(torch.add, dpreds) if need[0] else None
-        return (dgt, None, None, None,
-                *(d if need[4 + k] else None for k, d in enumerate(dpreds)))
+        return (dgt, None, None, None, None, None,
+                *(d if need[6 + k] else None for k, d in enumerate(dpreds)))
 
 
 def berhu_loss_many_cuda(preds: Sequence[torch.Tensor], gt: torch.Tensor, mask: torch.Tensor,
-                         weights: Sequence[float], c_frac: float = 0.2) -> torch.Tensor:
+                         weights: Sequence[float], c_frac: float = 0.2,
+                         c: torch.Tensor | None = None) -> torch.Tensor:
     """sum_s weights[s] * BerHu(preds[s], gt, mask), summed in that order,
-    through one grouped launch each way; differentiable w.r.t. the
-    predictions and gt. Each term has the semantics of
-    ``losses.supervised.berhu_loss_plain``."""
-    return _BerhuManyFunction.apply(gt, mask, tuple(float(w) for w in weights), c_frac,
-                                    *preds)
+    through one grouped launch each way (two forward on a data-parallel
+    mesh, ``berhu_stats``); differentiable w.r.t. the predictions and gt.
+    Each term has the semantics of ``losses.supervised.berhu_loss_plain``;
+    ``c`` (float32, one a prediction, on the card) gives the thresholds."""
+    return _BerhuManyFunction.apply(gt, mask, tuple(float(w) for w in weights), c_frac, c,
+                                    active_mesh(), *preds)
 
 
 def berhu_loss_cuda(pred: torch.Tensor, gt: torch.Tensor, mask: torch.Tensor,

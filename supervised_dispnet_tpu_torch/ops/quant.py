@@ -67,6 +67,7 @@ from supervised_dispnet_tpu_torch.models.fcrn import FCRN, UpProjection
 from supervised_dispnet_tpu_torch.models.resnet import BasicBlock, Bottleneck, ResNetEncoder
 from supervised_dispnet_tpu_torch.ops.cuda.int8_conv import Geometry, int8_conv, pack_weight
 from supervised_dispnet_tpu_torch.ops.fused_upconv import border_corrections, upconv2x_fused
+from supervised_dispnet_tpu_torch.parallel.mesh import all_reduce_max
 from supervised_dispnet_tpu_torch.utils.convert import flax_paths
 
 Exempt = Callable[[nn.Module], bool] | None
@@ -792,7 +793,9 @@ def qdq_ste(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
 
 
 def _tensor_scale(x: torch.Tensor) -> torch.Tensor:
-    return _per127(torch.clamp_min(x.detach().abs().amax(), 1e-12))
+    """max|x| / 127; on a data-parallel mesh the global batch's max, as the
+    JAX mesh takes it."""
+    return _per127(torch.clamp_min(all_reduce_max(x.detach().abs().amax()), 1e-12))
 
 
 def _channel_scale(w: torch.Tensor) -> torch.Tensor:

@@ -10,6 +10,14 @@ inside the step (unless ``debug_nans`` asks it to). What the JAX
 ``TrainState.apply_gradients`` adds to the optimizer, gradient accumulation
 and the EMA shadow, is ``ApplyGradients``; each train step carries its own
 as ``step.update``.
+
+``mesh=`` (``parallel/mesh.py``, more than one rank) makes a step
+data-parallel, as the JAX steps' mesh does: the step takes this rank's rows
+of the global batch, runs its forward and backward under the mesh, so that
+BatchNorm, the losses, QAT's scales and the metrics reduce over the global
+batch, draws the augmentation for the global batch, and ``ApplyGradients``
+averages the gradients over the ranks before anything else. A mesh of one
+rank is no mesh: the step is the plain one, bit for bit.
 """
 
 from __future__ import annotations
@@ -28,6 +36,8 @@ from supervised_dispnet_tpu_torch.losses.selfsup import (
     explainability_loss, photometric_reconstruction_loss, smooth_loss)
 from supervised_dispnet_tpu_torch.losses.supervised import (
     berhu_loss, l1_loss, multiscale_supervised_loss, scale_invariant_loss)
+from supervised_dispnet_tpu_torch.parallel.mesh import (
+    Mesh, active_mesh, average_gradients, global_mean, use_mesh)
 
 SUPERVISED_LOSSES: dict[str, Callable] = {
     "l1": l1_loss,
@@ -78,11 +88,9 @@ def _qat(fake_quant: bool) -> contextlib.AbstractContextManager:
     return fake_quant_methods()
 
 
-def _not_ported(**options) -> None:
-    for name, value in options.items():
-        if value:
-            raise NotImplementedError(
-                f"{name}={value!r} is not ported yet; see ROADMAP.md")
+def _data_parallel(mesh: Mesh | None) -> Mesh | None:
+    """The mesh a step reduces over: None for no mesh or one of one rank."""
+    return mesh if mesh is not None and mesh.size > 1 else None
 
 
 class ApplyGradients:
@@ -97,7 +105,12 @@ class ApplyGradients:
       accumulation carries over to the next micro-steps;
     - after each optimizer update, with ``ema_decay`` d > 0, blends the
       parameters into their shadow, ema = d * ema + (1 - d) * params (not
-      the BatchNorm buffers).
+      the BatchNorm buffers);
+    - first of all, on ``mesh`` (more than one rank), averages the gradients
+      and the loss over the ranks in one all-reduce (a parameter without a
+      gradient counts as zeros), the counterpart of XLA's gradient psum:
+      every rank then holds the same gradients, applies the same update,
+      and, with ``debug_nans``, raises at the same step.
 
     ``micro_step`` counts micro-steps (the JAX ``state.step``), ``updates``
     the optimizer updates. ``state_dict`` / ``load_state_dict`` carry all of
@@ -105,7 +118,7 @@ class ApplyGradients:
 
     def __init__(self, named_params: Iterable[tuple[str, torch.nn.Parameter]],
                  optimizer: torch.optim.Optimizer, ema_decay: float = 0.0,
-                 accum_steps: int = 1, debug_nans: bool = False):
+                 accum_steps: int = 1, debug_nans: bool = False, mesh: Mesh | None = None):
         if accum_steps < 1:
             raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
         if not 0.0 <= ema_decay < 1.0:
@@ -117,6 +130,7 @@ class ApplyGradients:
         self.ema_decay = ema_decay
         self.accum_steps = accum_steps
         self.debug_nans = debug_nans
+        self.mesh = _data_parallel(mesh)
         self.micro_step = 0
         self._acc: list[torch.Tensor] | None = None
         self.ema = ([p.detach().clone() for p in self.params] if ema_decay > 0
@@ -127,6 +141,12 @@ class ApplyGradients:
         return self.micro_step // self.accum_steps
 
     def __call__(self, loss: torch.Tensor) -> None:
+        if self.mesh is not None:
+            grads, loss = average_gradients(
+                [p.grad if p.grad is not None else torch.zeros_like(p) for p in self.params],
+                self.mesh, loss)
+            for p, g in zip(self.params, grads):
+                p.grad = g
         if self.debug_nans:
             self._check_finite(loss)
         grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in self.params]
@@ -230,9 +250,10 @@ def make_supervised_train_step(
     tensor (FCRN) predicts depth, and the loss takes it at its one scale.
     BerHu and the CE on the card run the CUDA kernels, on the CPU their
     plain versions. ``fake_quant`` (QAT) runs the model's forward under
-    ``ops/quant.py::fake_quant_methods``.
+    ``ops/quant.py::fake_quant_methods``. On ``mesh`` the batch is this
+    rank's rows and ``draws`` are the global batch's (module docstring).
     """
-    _not_ported(mesh=mesh)
+    mesh = _data_parallel(mesh)
     classification = loss_name == "classification"
     if not classification and loss_name not in SUPERVISED_LOSSES:
         raise ValueError(f"unknown supervised loss {loss_name!r}; choices: "
@@ -241,7 +262,7 @@ def make_supervised_train_step(
     loss_fn = SUPERVISED_LOSSES.get(loss_name)
     ce_fn = CLASSIFICATION_CE
     update = ApplyGradients(model.named_parameters(), optimizer, ema_decay, accum_steps,
-                            debug_nans)
+                            debug_nans, mesh)
 
     def compute_loss(out, depth_gt: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         if not classification:
@@ -259,15 +280,17 @@ def make_supervised_train_step(
         imgs, _, depth_gt = augment_batch(
             imgs_to_float(batch["tgt"])[:, None], batch["intrinsics"],
             depth_to_float(batch["depth"]), config=aug, generator=generator,
-            draws=draws)
+            draws=draws, mesh=mesh)
         depth_gt = depth_gt.contiguous()
         mask = (depth_gt > 0) & (depth_gt < max_depth)
         model.train()
         optimizer.zero_grad(set_to_none=True)
-        with _qat(fake_quant):
-            out = model(imgs[:, 0])
-        loss = compute_loss(out, depth_gt, mask)
-        loss.backward()
+        with use_mesh(mesh):
+            with _qat(fake_quant):
+                out = model(imgs[:, 0])
+            # the global batch's loss, the same on every rank
+            loss = compute_loss(out, depth_gt, mask)
+            loss.backward()
         update(loss)
         return {"loss": loss.detach()}
 
@@ -296,6 +319,7 @@ def make_selfsup_train_step(
     stochastic_photo: int = 1,
     photo_generator: torch.Generator | None = None,
     fake_quant: bool = False,
+    mesh: Mesh | None = None,
 ):
     """Build the self-supervised step (photometric + explainability +
     smoothness, BASELINE config 5): ``step(batch, generator=None,
@@ -317,22 +341,31 @@ def make_selfsup_train_step(
     [0, 1] float; 'intrinsics': (B, 3, 3)}, on the models' device. The warps
     run the CUDA kernels on the card and the plain sampler on the CPU.
     ``fake_quant`` (QAT) fake-quantizes the disparity net's forward; the pose
-    net stays float, as in the JAX step.
+    net stays float, as in the JAX step. On ``mesh`` the batch is this
+    rank's rows, ``draws`` are the global batch's, and ``photo_generator``
+    must be seeded alike on every rank; the terms are means over equal
+    shares of the batch, so each rank's mean needs no reduction for the
+    gradients, and the returned metrics are their means over the ranks.
     """
+    mesh = _data_parallel(mesh)
     if photo_generator is None:
         photo_generator = torch.Generator().manual_seed(0)
     with_exp = mask_weight > 0
     named = [(f"{tag}.{n}", p) for tag, net in (("disp", disp_model), ("pose", pose_model))
              for n, p in net.named_parameters()]
-    update = ApplyGradients(named, optimizer, ema_decay, accum_steps, debug_nans)
+    update = ApplyGradients(named, optimizer, ema_decay, accum_steps, debug_nans, mesh)
 
     def step(batch: dict, generator: torch.Generator | None = None,
              draws: dict | None = None,
              photo_phases: tuple | None = None) -> dict[str, torch.Tensor]:
+        with use_mesh(mesh):
+            return train(batch, generator, draws, photo_phases)
+
+    def train(batch, generator, draws, photo_phases) -> dict[str, torch.Tensor]:
         snippet = torch.cat([imgs_to_float(batch["tgt"])[:, None],
                              imgs_to_float(batch["ref_imgs"])], dim=1)
         imgs, K = augment_batch(snippet, batch["intrinsics"], config=aug,
-                                generator=generator, draws=draws)
+                                generator=generator, draws=draws, mesh=mesh)
         tgt = imgs[:, 0]
         refs = [imgs[:, 1 + r] for r in range(nb_ref_imgs)]
         disp_model.train()
@@ -354,11 +387,20 @@ def make_selfsup_train_step(
         loss = photo_weight * photo + mask_weight * exp_l + smooth_weight * smooth
         loss.backward()
         update(loss)
-        return {"loss": loss.detach(), "photo_loss": photo.detach(),
-                "exp_loss": exp_l.detach(), "smooth_loss": smooth.detach()}
+        return _rank_means({"loss": loss, "photo_loss": photo, "exp_loss": exp_l,
+                            "smooth_loss": smooth})
 
     step.update = update
     return step
+
+
+def _rank_means(metrics: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+    """Detached means over this rank's rows -> the global batch's (the mean
+    over the ranks, in one all-reduce under an active mesh)."""
+    if active_mesh() is None:
+        return {n: v.detach() for n, v in metrics.items()}
+    values = global_mean(torch.stack([v.detach() for v in metrics.values()]))
+    return dict(zip(metrics, values.unbind()))
 
 
 def make_selfsup_eval_step(
@@ -370,14 +412,17 @@ def make_selfsup_eval_step(
     num_scales: int = 4,
     with_exp: bool = True,
     aug: AugmentConfig | None = None,
+    mesh: Mesh | None = None,
 ):
     """Loss-only self-supervised validation (the reference's
     ``validate_without_gt``): ``step(batch) -> {"photo_loss", "exp_loss",
     "smooth_loss"}``, 0-d tensors on the device, no gradients.
 
     batch: {'tgt', 'ref_imgs', 'intrinsics'}. With ``aug`` set, images arrive
-    raw (uint8 or [0, 1] float) and are normalised here.
+    raw (uint8 or [0, 1] float) and are normalised here. On ``mesh`` the
+    batch is this rank's rows, and the losses the global batch's.
     """
+    mesh = _data_parallel(mesh)
 
     def prep(x: torch.Tensor) -> torch.Tensor:
         x = imgs_to_float(x)
@@ -397,14 +442,16 @@ def make_selfsup_eval_step(
             rotation_mode=rotation_mode, padding_mode=padding_mode)
         exp_l = (explainability_loss(exp_masks) if with_exp
                  else torch.zeros((), dtype=torch.float32, device=tgt.device))
-        return {"photo_loss": photo, "exp_loss": exp_l, "smooth_loss": smooth_loss(disps)}
+        with use_mesh(mesh):
+            return _rank_means({"photo_loss": photo, "exp_loss": exp_l,
+                                "smooth_loss": smooth_loss(disps)})
 
     return step
 
 
 def make_eval_step(model: torch.nn.Module, classification: bool = False,
                    bins: DepthBins | None = None, max_depth: float = 80.0,
-                   aug: AugmentConfig | None = None):
+                   aug: AugmentConfig | None = None, mesh: Mesh | None = None):
     """Validation step: forward + Eigen metrics against GT.
     ``step(batch) -> dict of 0-d tensors on the device``. With
     ``classification``, the depth is the finest logits' soft decode
@@ -412,9 +459,11 @@ def make_eval_step(model: torch.nn.Module, classification: bool = False,
 
     batch: {'img': (B, H, W, 3), 'depth': (B, H, W)}. With ``aug`` set,
     images arrive raw (uint8 or [0, 1] float) and are normalised here;
-    depth may arrive fp16 and is evaluated in fp32.
+    depth may arrive fp16 and is evaluated in fp32. On ``mesh`` the batch is
+    this rank's rows, and the metrics the global batch's.
     """
     bins = bins or DepthBins()
+    mesh = _data_parallel(mesh)
 
     @torch.no_grad()
     def step(batch: dict) -> dict[str, torch.Tensor]:
@@ -425,6 +474,7 @@ def make_eval_step(model: torch.nn.Module, classification: bool = False,
         out = model(img)
         depth = output_depth(out, bins if classification else None)
         gt = depth_to_float(batch["depth"])
-        return compute_errors(gt, depth, (gt > 0) & (gt < max_depth))
+        with use_mesh(mesh):
+            return compute_errors(gt, depth, (gt > 0) & (gt < max_depth))
 
     return step

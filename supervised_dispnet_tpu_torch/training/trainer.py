@@ -8,7 +8,10 @@ bf16 trunk, an EMA shadow that validation uses, gradient accumulation, an
 exact resume, hue jitter and ImageNet normalisation, the remat, half-res
 and stochastic photometric terms, a NaN check, a trace of steady-state
 steps, training-output images, and the loaders: host threads, or the split
-held on the device (``--loader device``) with k steps a dispatch.
+held on the device (``--loader device``) with k steps a dispatch; and
+data-parallel over the ranks of a process group (``parallel/mesh.py``): each
+rank loads and trains on its rows of the global batch, and rank 0 alone
+prints and writes the logs, checkpoints and traces.
 """
 
 from __future__ import annotations
@@ -17,7 +20,6 @@ import contextlib
 import dataclasses
 import json
 import math
-import os
 import time
 from pathlib import Path
 
@@ -35,14 +37,15 @@ from supervised_dispnet_tpu_torch.data.validation_folders import ValidationSet
 from supervised_dispnet_tpu_torch.losses.classification import DepthBins
 from supervised_dispnet_tpu_torch.models.common import set_compute_dtype
 from supervised_dispnet_tpu_torch.ops.warp import inverse_warp
+from supervised_dispnet_tpu_torch.parallel.mesh import Mesh, make_mesh
 from supervised_dispnet_tpu_torch.training.train_step import (
     SUPERVISED_LOSSES, disps_to_depths, imgs_to_float, make_eval_step,
     make_selfsup_eval_step, make_selfsup_train_step, make_supervised_train_step,
     output_depth)
-from supervised_dispnet_tpu_torch.utils.checkpoint import load_torch_state_dict
+from supervised_dispnet_tpu_torch.utils.checkpoint import load_torch_state_dict, save_linked
 from supervised_dispnet_tpu_torch.utils.device import resolve_device, set_fp32_math
 from supervised_dispnet_tpu_torch.utils.logging import (
-    AverageMeter, CsvLogger, JsonlLogger, TermLogger, make_tensorboard_writer)
+    AverageMeter, CsvLogger, JsonlLogger, NoopWriter, TermLogger, make_tensorboard_writer)
 from supervised_dispnet_tpu_torch.utils.profiling import trace
 from supervised_dispnet_tpu_torch.utils.viz import tensor2array
 
@@ -106,19 +109,6 @@ class TrainerConfig:
     #   k index batches, their metrics read back once (logged as means)
 
 
-def _save_linked(blob: dict, path: Path, best: Path | None) -> None:
-    """``torch.save`` ``blob`` to ``path`` through a temporary name, so each
-    save is a new file, and, when ``best`` is given, hard-link ``best`` to
-    it: one copy of the bytes on disk, and a later save of ``path`` leaves
-    ``best`` as it was."""
-    tmp = path.with_name(path.name + ".tmp")
-    torch.save(blob, tmp)
-    os.replace(tmp, path)
-    if best is not None:
-        best.unlink(missing_ok=True)
-        os.link(path, best)
-
-
 def aug_config(cfg: TrainerConfig) -> AugmentConfig:
     """The augmentation of ``cfg``: its hue and normalisation."""
     mean, std = ((IMAGENET_MEAN, IMAGENET_STD) if cfg.imagenet_normalization
@@ -170,12 +160,23 @@ class Trainer:
     (micro-batches), the JAX ``state.step``, which the logs use. With
     ``cfg.bf16`` the networks that have a bf16 trunk compute in it, as the
     JAX trainer's ``clone(dtype=bfloat16)``; one without (FCRN) says so and
-    stays float32."""
+    stays float32.
+
+    ``mesh`` is the data axis (default: the process group this process
+    joined, ``parallel.mesh.make_mesh``; one rank without one).
+    ``cfg.batch_size`` is the global batch, which the ranks must divide:
+    each trains on its rows, with the augmentation generator seeded alike on
+    every rank."""
 
     def __init__(self, cfg: TrainerConfig, disp_model: torch.nn.Module,
                  pose_model: torch.nn.Module | None = None,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda", mesh: Mesh | None = None):
         self.device = resolve_device(device)
+        self.mesh = mesh if mesh is not None else make_mesh()
+        if cfg.batch_size % self.mesh.size:
+            raise ValueError(
+                f"--batch-size {cfg.batch_size} (the global batch) is not divisible by the "
+                f"{self.mesh.size} ranks; launch a number of ranks that divides it")
         set_fp32_math()
         self.selfsup = cfg.loss == "selfsup"
         self.classification = cfg.loss == "classification"
@@ -189,7 +190,8 @@ class Trainer:
         self.pose_model = pose_model.to(self.device) if self.selfsup else None
         if cfg.bf16:
             for net in (self.model, self.pose_model):
-                if net is not None and not set_compute_dtype(net, torch.bfloat16):
+                if (net is not None and not set_compute_dtype(net, torch.bfloat16)
+                        and self.mesh.is_main):
                     print(f"=> --bf16: {type(net).__name__} has no bf16 trunk (nor has "
                           "the JAX package's); it trains in float32")
         params = list(self.model.parameters())
@@ -207,7 +209,8 @@ class Trainer:
         self._profiled = False  # the --profile-steps trace is written
         self.bins = DepthBins(num_bins=cfg.num_bins, max_depth=cfg.max_depth)
         self.eval_step = make_eval_step(self.model, classification=self.classification,
-                                        bins=self.bins, max_depth=cfg.max_depth, aug=self.aug)
+                                        bins=self.bins, max_depth=cfg.max_depth, aug=self.aug,
+                                        mesh=self.mesh)
         if self.selfsup:
             self._train_step = make_selfsup_train_step(
                 self.model, self.pose_model, self.optimizer,
@@ -218,17 +221,18 @@ class Trainer:
                 accum_steps=cfg.accum_steps, debug_nans=cfg.debug_nans, fake_quant=cfg.qat,
                 remat_photo=bool(cfg.remat), half_res_photo=cfg.half_res_photo,
                 stochastic_photo=cfg.stochastic_photo,
-                photo_generator=self.photo_generator)
+                photo_generator=self.photo_generator, mesh=self.mesh)
             self.selfsup_eval_step = make_selfsup_eval_step(
                 self.model, self.pose_model, nb_ref_imgs=cfg.sequence_length - 1,
                 rotation_mode=cfg.rotation_mode, padding_mode=cfg.padding_mode,
-                with_exp=cfg.with_exp_mask and cfg.mask_loss_weight > 0, aug=self.aug)
+                with_exp=cfg.with_exp_mask and cfg.mask_loss_weight > 0, aug=self.aug,
+                mesh=self.mesh)
         else:
             self._train_step = make_supervised_train_step(
                 self.model, self.optimizer, cfg.loss, bins=self.bins, aug=self.aug,
                 max_depth=cfg.max_depth, ema_decay=cfg.ema_decay,
                 accum_steps=cfg.accum_steps, debug_nans=cfg.debug_nans,
-                fake_quant=cfg.qat)
+                fake_quant=cfg.qat, mesh=self.mesh)
         # accumulation, the EMA shadow and the NaN check
         self.update = self._train_step.update
 
@@ -294,7 +298,8 @@ class Trainer:
     def make_loaders(self) -> tuple[BatchLoader | DeviceResidentSequence, BatchLoader]:
         """The train loader (host threads, or with ``loader="device"`` the
         split on the card, yielding index dicts) and the validation loader,
-        always on the host."""
+        always on the host; each yields this rank's rows of the global
+        batches."""
         cfg = self.cfg
         if cfg.loader == "grain":
             raise NotImplementedError(
@@ -322,16 +327,17 @@ class Trainer:
         # supervised training never reads the reference frames
         seq = dict(sequence_length=cfg.sequence_length if self.selfsup else 1,
                    with_depth=not self.selfsup)
+        rows = self.mesh.rows(cfg.batch_size)
         if cfg.loader == "device":
             self._device_data = train_loader = DeviceResidentSequence(
                 cfg.data, cfg.batch_size, self.device, train=True, seed=cfg.seed,
                 epoch_size=cfg.epoch_size or None, steps_per_item=cfg.steps_per_dispatch,
-                **seq)
+                rows=rows, **seq)
         else:
             train_loader = BatchLoader(
                 sequences(cfg.data, seed=cfg.seed, train=True, uint8=True, **seq),
                 cfg.batch_size, shuffle=True, num_workers=cfg.workers, seed=cfg.seed,
-                epoch_size=cfg.epoch_size or None)
+                epoch_size=cfg.epoch_size or None, rows=rows)
         try:
             val_set = validation(cfg.data, uint8=True)
         except FileNotFoundError:  # a packed val split without GT depth
@@ -346,7 +352,7 @@ class Trainer:
             val_set = sequences(cfg.data, seed=cfg.seed, train=False,
                                 sequence_length=cfg.sequence_length, shuffle=False, uint8=True)
         val_loader = BatchLoader(val_set, cfg.batch_size, shuffle=False,
-                                 num_workers=cfg.workers)
+                                 num_workers=cfg.workers, rows=rows)
         return train_loader, val_loader
 
     # -- loops --------------------------------------------------------------
@@ -370,8 +376,9 @@ class Trainer:
             jsonl.log(event="train_iter", step=step0 + (i + 1) * k, loss=loss)
 
         # --profile-steps: steps 1 .. prof (step 0 builds the kernels and
-        # picks cuDNN's algorithms), the window clamped to the epoch
-        prof = 0 if self._profiled else min(self.cfg.profile_steps, len(loader) - 1)
+        # picks cuDNN's algorithms), the window clamped to the epoch; rank 0's
+        prof = (0 if self._profiled or not self.mesh.is_main
+                else min(self.cfg.profile_steps, len(loader) - 1))
         pending = None
         with contextlib.ExitStack() as tracing:
             for i, np_batch in enumerate(loader):
@@ -390,7 +397,7 @@ class Trainer:
                 pending = (i, metrics)
                 t_batch.update(time.time() - end)
                 end = time.time()
-                if self.tb is not None and freq and i % freq == 0:
+                if self.tb is not None and freq and i % freq == 0 and self.mesh.is_main:
                     self.log_images(np_batch, step0 + (i + 1) * k)
         if pending is not None:
             consume(*pending)
@@ -477,19 +484,22 @@ class Trainer:
         partial gradient accumulation (``acc``, or None), the epoch and the
         best validation metric; the pose net's ``state_dict`` beside it
         under the reference's name; each linked to its best file when
-        ``is_best`` (``_save_linked``). ``restore`` reads it all back."""
-        _save_linked(
-            {"epoch": epoch, "step": self.step, "best": best,
-             "state_dict": self.model.state_dict(),
-             "optimizer": self.optimizer.state_dict(),
-             "generator": self.generator.get_state(),
-             "photo_generator": self.photo_generator.get_state(),
-             **self.update.state_dict()},
-            save_path / CHECKPOINT_NAME, save_path / BEST_NAME if is_best else None)
-        if self.selfsup:
-            _save_linked({"epoch": epoch, "state_dict": self.pose_model.state_dict()},
-                         save_path / POSE_CHECKPOINT_NAME,
-                         save_path / POSE_BEST_NAME if is_best else None)
+        ``is_best`` (``utils.checkpoint.save_linked``). ``restore`` reads it
+        all back. Rank 0 writes; every rank then waits for it."""
+        if self.mesh.is_main:
+            save_linked(
+                {"epoch": epoch, "step": self.step, "best": best,
+                 "state_dict": self.model.state_dict(),
+                 "optimizer": self.optimizer.state_dict(),
+                 "generator": self.generator.get_state(),
+                 "photo_generator": self.photo_generator.get_state(),
+                 **self.update.state_dict()},
+                save_path / CHECKPOINT_NAME, save_path / BEST_NAME if is_best else None)
+            if self.selfsup:
+                save_linked({"epoch": epoch, "state_dict": self.pose_model.state_dict()},
+                            save_path / POSE_CHECKPOINT_NAME,
+                            save_path / POSE_BEST_NAME if is_best else None)
+        self.mesh.barrier()
 
     def restore(self, save_path: Path) -> dict | None:
         """Load the run's last checkpoint (``save_checkpoint``) into the
@@ -522,17 +532,20 @@ class Trainer:
         start_epoch, best = 0, math.inf
         if cfg.resume:
             last = self.restore(save_path)
+            if last is not None and self.mesh.is_main:
+                print(f"=> resumed after epoch {last['epoch']} (train step "
+                      f"{self.update.micro_step}, best {last['best']:.4g})", flush=True)
             if last is not None:
                 start_epoch, best = last["epoch"] + 1, last["best"]
-                print(f"=> resumed after epoch {last['epoch']} (train step "
-                      f"{self.update.micro_step}, best {best:.4g})", flush=True)
         train_loader, val_loader = self.make_loaders()
         train_loader.epoch = start_epoch
-        logger = TermLogger(cfg.epochs, len(train_loader), len(val_loader))
-        csv = CsvLogger(save_path, append=start_epoch > 0)
-        jsonl = JsonlLogger(save_path / "metrics.jsonl")
+        # rank 0 writes; the others log nowhere
+        main = self.mesh.is_main
+        logger = TermLogger(cfg.epochs, len(train_loader), len(val_loader), enabled=main)
+        csv = CsvLogger(save_path, append=start_epoch > 0, enabled=main)
+        jsonl = JsonlLogger(save_path / "metrics.jsonl", enabled=main)
         if self.tb is None:
-            self.tb = make_tensorboard_writer(save_path)
+            self.tb = make_tensorboard_writer(save_path) if main else NoopWriter()
         # best-model metric: abs_rel with GT, else the photometric val loss
         sel_key = "abs_rel" if self.val_with_gt else "photo_loss"
         try:
@@ -552,8 +565,9 @@ class Trainer:
                 is_best = errors[sel_key] < best
                 best = min(best, errors[sel_key])
                 self.save_checkpoint(save_path, epoch, is_best, best)
-                (save_path / "trainer_meta.json").write_text(
-                    json.dumps({"epoch": epoch, "best": best}))
+                if main:
+                    (save_path / "trainer_meta.json").write_text(
+                        json.dumps({"epoch": epoch, "best": best}))
         finally:
             jsonl.close()
             self.tb.close()

@@ -1,5 +1,7 @@
-"""Reading checkpoints: the port of
-``supervised_dispnet_tpu/utils/checkpoint.py::load_torch_state_dict``.
+"""Reading and writing checkpoints: the port of
+``supervised_dispnet_tpu/utils/checkpoint.py::load_torch_state_dict``, and
+the trainer's writer (``save_linked``), which on a data-parallel run rank 0
+alone calls (``training/trainer.py::Trainer.save_checkpoint``).
 
 A ``.pth.tar`` written by the port's ``Trainer`` or by the reference holds
 the model's state dict under the reference's names, so it loads into the
@@ -9,6 +11,7 @@ are not read here.
 
 from __future__ import annotations
 
+import os
 from pathlib import Path
 
 import torch
@@ -27,3 +30,16 @@ def load_torch_state_dict(path: str | Path) -> dict[str, torch.Tensor]:
     blob = torch.load(p, map_location="cpu", weights_only=True)
     sd = blob.get("state_dict", blob) if isinstance(blob, dict) else blob
     return {k.removeprefix("module."): v for k, v in sd.items()}
+
+
+def save_linked(blob: dict, path: Path, best: Path | None) -> None:
+    """``torch.save`` ``blob`` to ``path`` through a temporary name, so each
+    save is a new file, and, when ``best`` is given, hard-link ``best`` to
+    it: one copy of the bytes on disk, and a later save of ``path`` leaves
+    ``best`` as it was."""
+    tmp = path.with_name(path.name + ".tmp")
+    torch.save(blob, tmp)
+    os.replace(tmp, path)
+    if best is not None:
+        best.unlink(missing_ok=True)
+        os.link(path, best)

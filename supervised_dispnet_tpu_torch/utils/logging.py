@@ -1,7 +1,9 @@
 """Console, CSV/JSONL and tensorboard logging, the port's copy of
 ``supervised_dispnet_tpu/utils/logging.py``. The log file names match the
 reference: ``progress_log_summary.csv``, ``progress_log_full.csv``,
-``metrics.jsonl``."""
+``metrics.jsonl``. Each logger takes ``enabled``: on a data-parallel run
+every rank but rank 0 makes its loggers with ``enabled=False``, and they
+write and print nothing."""
 
 from __future__ import annotations
 
@@ -45,37 +47,43 @@ class AverageMeter:
 class TermLogger:
     """Minimal terminal progress logger (epoch / train / valid lines)."""
 
-    def __init__(self, n_epochs: int, train_size: int, valid_size: int):
+    def __init__(self, n_epochs: int, train_size: int, valid_size: int,
+                 enabled: bool = True):
+        self.enabled = enabled
         self.n_epochs = n_epochs
         self.train_size = train_size
         self.valid_size = valid_size
         self._t0 = time.time()
 
     def epoch_start(self, epoch: int):
-        print(f"=> epoch {epoch + 1}/{self.n_epochs}", flush=True)
+        if self.enabled:
+            print(f"=> epoch {epoch + 1}/{self.n_epochs}", flush=True)
 
     def train_update(self, i: int, msg: str):
-        if i % 50 == 0 or i == self.train_size - 1:
+        if self.enabled and (i % 50 == 0 or i == self.train_size - 1):
             dt = time.time() - self._t0
             print(f"  train {i + 1}/{self.train_size} [{dt:7.1f}s] {msg}", flush=True)
 
     def valid_update(self, i: int, msg: str = ""):
-        if i % 100 == 0 or i == self.valid_size - 1:
+        if self.enabled and (i % 100 == 0 or i == self.valid_size - 1):
             print(f"  valid {i + 1}/{self.valid_size} {msg}", flush=True)
 
     def print_result(self, msg: str):
-        print(f"  {msg}", flush=True)
+        if self.enabled:
+            print(f"  {msg}", flush=True)
 
 
 class CsvLogger:
     """Per-epoch summary + per-iteration full CSV logs."""
 
-    def __init__(self, save_path: str | Path, append: bool = False):
+    def __init__(self, save_path: str | Path, append: bool = False, enabled: bool = True):
+        self.enabled = enabled
         self.save_path = Path(save_path)
-        self.save_path.mkdir(parents=True, exist_ok=True)
+        if enabled:
+            self.save_path.mkdir(parents=True, exist_ok=True)
         self.summary = self.save_path / "progress_log_summary.csv"
         self.full = self.save_path / "progress_log_full.csv"
-        if append and self.summary.exists():
+        if not enabled or (append and self.summary.exists()):
             return  # resuming: keep the previous run's rows
         with open(self.summary, "w", newline="") as f:
             csv.writer(f, delimiter="\t").writerow(["train_loss", "validation_loss"])
@@ -83,10 +91,14 @@ class CsvLogger:
             csv.writer(f, delimiter="\t").writerow(["train_loss"])
 
     def write_summary(self, row):
+        if not self.enabled:
+            return
         with open(self.summary, "a", newline="") as f:
             csv.writer(f, delimiter="\t").writerow(row)
 
     def write_iter(self, row):
+        if not self.enabled:
+            return
         with open(self.full, "a", newline="") as f:
             csv.writer(f, delimiter="\t").writerow(row)
 
@@ -94,18 +106,23 @@ class CsvLogger:
 class JsonlLogger:
     """Structured metrics stream (one JSON object per event)."""
 
-    def __init__(self, path: str | Path):
+    def __init__(self, path: str | Path, enabled: bool = True):
         self.path = Path(path)
-        self.path.parent.mkdir(parents=True, exist_ok=True)
-        self._f = open(self.path, "a")
+        self._f = None
+        if enabled:
+            self.path.parent.mkdir(parents=True, exist_ok=True)
+            self._f = open(self.path, "a")
 
     def log(self, **kv):
+        if self._f is None:
+            return
         kv.setdefault("t", time.time())
         self._f.write(json.dumps(kv) + "\n")
         self._f.flush()
 
     def close(self):
-        self._f.close()
+        if self._f is not None:
+            self._f.close()
 
 
 class NoopWriter:

@@ -64,7 +64,8 @@ def fresh_import() -> list[str]:
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
                          capture_output=True, text=True, timeout=300).stdout
     loaded = json.loads(out.splitlines()[-1])
-    for mod in ("training.trainer", "cli.test_disp", "cli.test_pose", "cli.serve", "serving"):
+    for mod in ("training.trainer", "cli.test_disp", "cli.test_pose", "cli.serve", "serving",
+                "parallel.mesh"):
         assert f"supervised_dispnet_tpu_torch.{mod}" in loaded
     return loaded
 

@@ -23,6 +23,7 @@ from supervised_dispnet_tpu.training import (
 from supervised_dispnet_tpu_torch.data.augment import AugmentConfig
 from supervised_dispnet_tpu_torch.models import DispResNet
 from supervised_dispnet_tpu_torch.ops.cuda import losses as kl
+from supervised_dispnet_tpu_torch.parallel import make_mesh
 from supervised_dispnet_tpu_torch.training.train_step import (
     make_eval_step, make_supervised_train_step)
 from supervised_dispnet_tpu_torch.training.trainer import TrainerConfig, build_optimizer
@@ -145,13 +146,28 @@ def test_eval_step_matches_jax(one_step):
                                    err_msg=k)
 
 
-@pytest.mark.parametrize("kw", [{"mesh": "data"},
-                                {"mesh": "data", "fake_quant": True, "ema_decay": 0.99},
-                                {"mesh": "data", "fake_quant": True}])
+@pytest.mark.parametrize("kw", [{"mesh": "one rank"},
+                                {"mesh": "one rank", "fake_quant": True, "ema_decay": 0.99},
+                                {"mesh": "one rank", "fake_quant": True}])
 def test_unported_step_options_raise(kw):
-    """The JAX step's option still to port (a mesh) raises, also beside
-    ported ones (EMA, and QAT since it was ported)."""
-    model = DispResNet(18)
-    opt = torch.optim.Adam(model.parameters())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_supervised_train_step(model, opt, "berhu", **kw)
+    """The JAX step's mesh, once the option still to port, is ported
+    (``parallel/mesh.py``): a mesh of one rank (``make_mesh()`` with no
+    process group) gives the plain step bit for bit, the loss and every
+    parameter and buffer after it, alone and beside ported options (EMA,
+    QAT)."""
+    kw = {**kw, "mesh": make_mesh()}
+    assert kw["mesh"].size == 1
+    batch = {k: torch.from_numpy(v) for k, v in _batch(2).items()}
+    out = {}
+    for with_mesh in (True, False):
+        model = DispResNet(18, generator=torch.Generator().manual_seed(4))
+        opt = torch.optim.Adam(model.parameters(), lr=LR)
+        opts = kw if with_mesh else {k: v for k, v in kw.items() if k != "mesh"}
+        step = make_supervised_train_step(model, opt, "berhu", aug=NO_AUG, **opts)
+        loss = step(batch)["loss"]
+        out[with_mesh] = (loss, model.state_dict(), step.update.ema)
+    assert torch.equal(out[True][0], out[False][0])
+    for k, v in out[False][1].items():
+        assert torch.equal(out[True][1][k], v), k
+    if kw.get("ema_decay"):
+        assert all(torch.equal(a, b) for a, b in zip(out[True][2], out[False][2]))
