@@ -166,6 +166,18 @@ Phases; any failure exits non-zero:
        1 + 1 a scale; warp 1 + 1), the step times and the collectives'
        share; 3 DispResNet-50 BerHu steps through ``cli.train`` on each,
        their checkpoints side by side;
+     - spatial partitioning (``spatial_phase``, ``--spatial-shards``): the
+       same script on 2 ranks of one spatial group sharing the card (gloo),
+       one step of DispResNet-50 BerHu and multi-scale classification at
+       128x416 against the parallel phase's 1-rank run (loss, gradients, BN
+       statistics), each rank's launches (BerHu 1 + 1 given-c + 1, CE 4 +
+       4), step ms with the all-reduces' and the halo exchanges' ms;
+       DispResNet-18 BerHu on 2 data x 2 spatial ranks against 1 rank;
+       DispResNet-50 BerHu at 384x1280, a global batch of 2, each shard's
+       peak memory against one rank's; 3 BerHu steps through ``cli.train``
+       with ``--spatial-shards 2``, its checkpoint's 2-shard eval against a
+       1-rank eval of it; the guard (H = 64 at 4 shards raises before any
+       collective);
      - ``ops.warp.inverse_warp`` with its default ``diff_img=True`` and a
        backward into the image, depth and pose (the image+coordinate
        backward's path), against the plain sampler on the card;
@@ -186,7 +198,7 @@ Phases; any failure exits non-zero:
      network numbers, a JSON line of the training options' numbers, a JSON
      line of the int8 numbers, a JSON line of the photometric arms',
      loaders', ETL and convergence numbers, a JSON line of the
-     data-parallel numbers, a
+     data-parallel and spatial numbers, a
      JSON line of kernel numbers, the card line, and as the last line
      ``{"ok": true, "device": {...}}``.
 
@@ -4790,7 +4802,7 @@ def int8_phase(torch, tmp: Path, card: str, ckpt: str, tree: Path) -> tuple[dict
 PARALLEL_RANKS = (1, 2)  # the 1-rank run (NCCL) and the 2-rank run (gloo, one card)
 PARALLEL_KINDS = ("berhu", "classification", "selfsup")
 PARALLEL_TRAIN_STEPS = 3
-PARALLEL_TIMED_STEPS = 5
+PARALLEL_TIMED_STEPS = 3
 PARALLEL_ENCODERS = ("disp.encoder.", "disp.conv", "pose.conv")  # rel-L2 5e-2 (ROADMAP C4)
 # the decoder and heads' rel-L2 limit, 2 ranks against 1: 1e-3; the
 # self-supervised step's 5e-3, as two runs of that step alone on the card
@@ -4887,13 +4899,15 @@ def berhu_given_c_check(torch) -> dict:
             "library_ms": None, "device_us": dev_us, "problems": P}
 
 
-def _launch_ranks(n: int, out: Path, cli: list[str], timeout: float = 600.0) -> list[dict]:
+def _launch_ranks(n: int, out: Path, cli: list[str], timeout: float = 600.0,
+                  extra: tuple[str, ...] = (), steps: int = PARALLEL_TIMED_STEPS) -> list[dict]:
     """``scripts/torch_parallel_run.py`` on ``n`` ranks of this card under
-    ``torch.distributed.run`` (a free localhost port); each rank's record."""
+    ``torch.distributed.run`` (a free localhost port), with ``extra``
+    arguments; each rank's record."""
     cmd = [sys.executable, "-m", "torch.distributed.run", "--nnodes", "1",
            "--nproc-per-node", str(n), "--master-addr", "127.0.0.1", "--master-port",
            str(_free_port()), str(REPO / "scripts" / "torch_parallel_run.py"), str(out),
-           "--steps", str(PARALLEL_TIMED_STEPS), "--", *cli]
+           "--steps", str(steps), *extra, "--", *cli]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=timeout)
     wall = time.perf_counter() - t0
@@ -4945,7 +4959,9 @@ def parallel_phase(torch, tmp: Path, card: str) -> tuple[dict, dict]:
         cli = [str(tmp / "data"), "--network", "disp_res_50", "--loss", "berhu", "-b", str(B),
                "--epoch-size", str(PARALLEL_TRAIN_STEPS), "--epochs", "1", "--with-gt",
                "--checkpoints-dir", str(tmp / f"ck{n}"), "--name", "parallel"]
-        runs[n] = _launch_ranks(n, tmp / f"ranks{n}", cli)
+        # the 1-rank run also makes the spatial phase's references
+        kinds = (*PARALLEL_KINDS, *(("berhu18", "memory") if n == 1 else ()))
+        runs[n] = _launch_ranks(n, tmp / f"ranks{n}", cli, extra=("--kinds", ",".join(kinds)))
     one, two = runs[1], runs[2]
     if one[0]["backend"] != "nccl" or any(r["backend"] != "gloo" for r in two):
         raise AssertionError(f"backends {one[0]['backend']} / {[r['backend'] for r in two]}: "
@@ -5041,6 +5057,246 @@ def parallel_phase(torch, tmp: Path, card: str) -> tuple[dict, dict]:
     return report, entry
 
 
+SPATIAL_KINDS = ("berhu", "classification")
+SPATIAL_TIMED_STEPS = 3
+SPATIAL_TRAIN_STEPS = 3
+
+
+def _parallel_runner():
+    """``scripts/torch_parallel_run.py`` as a module (its seeded batches)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("torch_parallel_run",
+                                                  REPO / "scripts" / "torch_parallel_run.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _hold_step(torch, kind: str, ref: dict, got: dict, what: str) -> dict:
+    """One step of ``got`` against ``ref`` (the runner's saved loss,
+    gradients and BN statistics): the loss rel 1e-5; decoder and head
+    gradients rel-L2 within the parallel phase's limit; the encoder's
+    finite and within C4's 5e-2; BN statistics within the parallel phase's
+    1e-3. Returns the figures."""
+    rel_loss = abs(got["loss"] - ref["loss"]) / abs(ref["loss"])
+    rels = {k: _rel_l2(got["grads"][k], g) for k, g in ref["grads"].items()}
+    bad = [f"{k} {r:.3g}" for k, r in rels.items()
+           if not (r <= (5e-2 if k.startswith(PARALLEL_ENCODERS)
+                         else PARALLEL_DECODER_LIMIT[kind]))]
+    bad += [k for k, g in got["grads"].items() if not bool(torch.isfinite(g).all())]
+    bn = {k: _rel_l2(got["bn"][k], v) for k, v in ref["bn"].items()}
+    bad += [f"{k} {r:.3g}" for k, r in bn.items() if not r <= 1e-3]
+    if rel_loss > 1e-5 or bad or set(rels) != set(got["grads"]):
+        raise AssertionError(f"spatial {what}: loss rel {rel_loss:.3g} (limit 1e-5); {bad[:8]}")
+    dec = {k: r for k, r in rels.items() if not k.startswith(PARALLEL_ENCODERS)}
+    enc = [r for k, r in rels.items() if k.startswith(PARALLEL_ENCODERS)]
+    return {"loss": [ref["loss"], got["loss"]], "loss_rel": rel_loss,
+            "decoder_rel_l2_max": max(dec.values()), "decoder_worst": max(dec, key=dec.get),
+            "encoder_rel_l2_max": max(enc), "bn_rel_l2_max": max(bn.values())}
+
+
+def spatial_guard(torch) -> str:
+    """H = 64 at 4 spatial shards on DispResNet-18 (stride 32): the step
+    raises ``ValueError`` naming spatial partitioning before any collective
+    (the mesh's collectives raise ``AssertionError``)."""
+    from supervised_dispnet_tpu_torch.models import get_disp_net
+    from supervised_dispnet_tpu_torch.parallel.mesh import Mesh
+    from supervised_dispnet_tpu_torch.training.train_step import make_supervised_train_step
+
+    class NoCollectives(Mesh):
+        def all_reduce_(self, t, op="sum"):
+            raise AssertionError("a collective ran before the guard")
+
+        def exchange(self, t):
+            raise AssertionError("a halo exchange ran before the guard")
+
+    model = get_disp_net("disp_res_18", device=CARD)
+    step = make_supervised_train_step(model, torch.optim.Adam(model.parameters()), "berhu",
+                                      mesh=NoCollectives(size=4, spatial=4))
+    batch = {"tgt": torch.zeros(1, 64, 416, 3, dtype=torch.uint8, device=CARD),
+             "intrinsics": torch.eye(3, device=CARD)[None],
+             "depth": torch.ones(1, 64, 416, device=CARD)}
+    try:
+        step(batch)
+    except ValueError as e:
+        if "spatial partitioning" not in str(e):
+            raise
+        return str(e)
+    raise AssertionError("the spatial guard did not raise at H = 64, 4 shards")
+
+
+def spatial_phase(torch, tmp: Path, card: str, parallel_tmp: Path) -> dict:
+    """Spatial partitioning on this card (``parallel/spatial.py``), through
+    ``scripts/torch_parallel_run.py`` under ``torch.distributed.run``:
+
+    - 2 ranks of one spatial group sharing the card (gloo): one step of
+      DispResNet-50 BerHu and of multi-scale classification (64 bins) at
+      128x416, a global batch of 4, against the parallel phase's 1-rank run
+      of the same weights and batch (``_hold_step``), each rank's launches
+      (BerHu 1 grouped + 1 given-c forward + 1 backward, CE 4 + 4), step ms
+      and the all-reduces' and halo exchanges' ms; DispResNet-50 BerHu at
+      384x1280, a global batch of 2, each shard's
+      ``torch.cuda.max_memory_allocated`` below one rank's (the parallel
+      phase's 1-rank launch, which also steps DispResNet-18 for the 2 x 2
+      reference); 3 BerHu steps through ``cli.train`` with
+      ``--spatial-shards 2`` (1 + 1 + 1 launches a step a rank), then its
+      model's eval on a seeded batch on the 2 shards against a 1-rank eval
+      of its checkpoint here: the depth maps rtol 1e-4, the error metrics
+      rtol 1e-4, the threshold fractions a1..a3 within 10 of the batch's
+      valid pixels (a pixel whose depth ratio lies within rounding of
+      1.25^k goes either way: 2 of 21,000 did in a first run);
+    - DispResNet-18 BerHu on 2 data x 2 spatial ranks (4 on the card)
+      against 1 rank (``_hold_step``);
+    - the guard (``spatial_guard``)."""
+    from supervised_dispnet_tpu_torch.models import get_disp_net
+    from supervised_dispnet_tpu_torch.parallel.mesh import Mesh
+    from supervised_dispnet_tpu_torch.data.augment import normalize_images
+    from supervised_dispnet_tpu_torch.training.train_step import (
+        imgs_to_float, make_eval_step, output_depth)
+    from supervised_dispnet_tpu_torch.training.trainer import TrainerConfig, aug_config
+    from supervised_dispnet_tpu_torch.utils.device import set_fp32_math
+
+    t0 = time.perf_counter()
+    B, H, W = MAIN_SHAPE
+    write_packed(tmp / "data", np.random.default_rng(2), H, W)
+    cli = [str(tmp / "data"), "--network", "disp_res_50", "--loss", "berhu", "-b", str(B),
+           "--epoch-size", str(SPATIAL_TRAIN_STEPS), "--epochs", "1", "--with-gt",
+           "--checkpoints-dir", str(tmp / "ck"), "--name", "spatial", "--spatial-shards", "2"]
+    two = _launch_ranks(2, tmp / "ranks2", cli, steps=SPATIAL_TIMED_STEPS, extra=(
+        "--kinds", ",".join((*SPATIAL_KINDS, "memory")), "--spatial-shards", "2",
+        "--eval-batch"))
+    four = _launch_ranks(4, tmp / "ranks4", [], steps=1, extra=(
+        "--kinds", "berhu18", "--spatial-shards", "2"))
+    # the parallel phase's 1-rank run: DispResNet-18 BerHu and the 384x1280 peak
+    one = [json.loads((parallel_tmp / "ranks1" / "rank0.json").read_text())]
+    if any(r["backend"] != "gloo" or r["spatial"] != 2 for r in two + four):
+        raise AssertionError("want gloo ranks in spatial groups of 2")
+    if not all(r["collectives"] for r in two + four):
+        raise AssertionError("a sum or max over the ranks came out wrong")
+    report = {"card": card, "steps": {}}
+    for kind in SPATIAL_KINDS:
+        ref = torch.load(parallel_tmp / "ranks1" / f"{kind}.pt", weights_only=False)
+        got = torch.load(tmp / "ranks2" / f"{kind}.pt", weights_only=False)
+        held = _hold_step(torch, kind, ref, got, f"{kind}, 1 x 2 against 1 rank")
+        want = PARALLEL_LAUNCHES[kind]
+        for r in two:
+            seen = {k: v for k, v in r["steps"][kind]["launches"].items() if v}
+            if seen != want:
+                raise AssertionError(f"spatial {kind} rank {r['rank']}: launches {seen}, "
+                                     f"want {want}")
+        med = {k: [float(np.median(r["steps"][kind][k])) for r in two]
+               for k in ("step_ms", "collective_ms", "halo_ms")}
+        report["steps"][kind] = {**held, "launches_a_rank": want, **{f"{k}_median": v
+                                                                      for k, v in med.items()}}
+        print(f"  spatial {kind}, DispResNet-50 128x416 B=4 on 1 x 2 ranks (gloo, one card) "
+              f"against 1 rank: loss {held['loss'][1]:.7g} / {held['loss'][0]:.7g} (rel "
+              f"{held['loss_rel']:.3g}, limit 1e-5); decoder and head gradients rel-L2 max "
+              f"{held['decoder_rel_l2_max']:.3g} ({held['decoder_worst']}; limit "
+              f"{PARALLEL_DECODER_LIMIT[kind]:g}), encoder {held['encoder_rel_l2_max']:.3g} "
+              f"(limit 5e-2), BN statistics {held['bn_rel_l2_max']:.3g}; launches a rank "
+              f"{want}; step ms median a rank {[round(m, 2) for m in med['step_ms']]}, "
+              f"all-reduces {[round(m, 2) for m in med['collective_ms']]} ms, halo exchanges "
+              f"{[round(m, 2) for m in med['halo_ms']]} ms, on {card}", flush=True)
+    # the 2 x 2 mesh
+    ref = torch.load(parallel_tmp / "ranks1" / "berhu18.pt", weights_only=False)
+    got = torch.load(tmp / "ranks4" / "berhu18.pt", weights_only=False)
+    held = _hold_step(torch, "berhu", ref, got, "DispResNet-18, 2 x 2 against 1 rank")
+    for r in four:
+        seen = {k: v for k, v in r["steps"]["berhu18"]["launches"].items() if v}
+        if seen != PARALLEL_LAUNCHES["berhu"]:
+            raise AssertionError(f"spatial 2 x 2 rank {r['rank']}: launches {seen}")
+    report["mesh_2x2"] = {**held, "step_ms": [r["steps"]["berhu18"]["step_ms"] for r in four],
+                          "halo_ms": [r["steps"]["berhu18"]["halo_ms"] for r in four],
+                          "collective_ms": [r["steps"]["berhu18"]["collective_ms"]
+                                            for r in four]}
+    print(f"  spatial DispResNet-18 BerHu 128x416 B=4 on 2 data x 2 spatial ranks (4 on the "
+          f"card) against 1 rank: loss rel {held['loss_rel']:.3g}; decoder and heads rel-L2 "
+          f"max {held['decoder_rel_l2_max']:.3g}, encoder {held['encoder_rel_l2_max']:.3g}, "
+          f"BN {held['bn_rel_l2_max']:.3g}; step ms {[round(s[0], 1) for s in report['mesh_2x2']['step_ms']]}",
+          flush=True)
+    # what the feature is for: each shard's peak memory at 384x1280
+    peak1 = one[0]["steps"]["memory"]["max_memory_allocated"]
+    peaks = [r["steps"]["memory"]["max_memory_allocated"] for r in two]
+    report["memory_384x1280"] = {
+        "peak_bytes_1_rank": peak1, "peak_bytes_shards": peaks,
+        "ratio": [p / peak1 for p in peaks],
+        "step_ms_1_rank": one[0]["steps"]["memory"]["step_ms"],
+        "step_ms_shards": [r["steps"]["memory"]["step_ms"] for r in two],
+        "halo_ms_shards": [r["steps"]["memory"]["halo_ms"] for r in two],
+        "collective_ms_shards": [r["steps"]["memory"]["collective_ms"] for r in two]}
+    print(f"  spatial DispResNet-50 BerHu 384x1280 B=2: peak max_memory_allocated 1 rank "
+          f"{peak1 / 2**20:.1f} MiB, shards {[round(p / 2**20, 1) for p in peaks]} MiB (ratio "
+          f"{[round(p / peak1, 4) for p in peaks]}); step ms 1 rank "
+          f"{one[0]['steps']['memory']['step_ms'][0]:.1f}, shards "
+          f"{[round(r['steps']['memory']['step_ms'][0], 1) for r in two]} (halo "
+          f"{[round(r['steps']['memory']['halo_ms'][0], 1) for r in two]} ms), on {card}",
+          flush=True)
+    if not all(p < peak1 for p in peaks):
+        raise AssertionError(f"a shard's peak {peaks} is not below one rank's {peak1}")
+    # the CLI: launches a step, then its checkpoint's eval, 2 shards against 1 rank
+    steps = SPATIAL_TRAIN_STEPS
+    want = {"berhu_fwd_launches": steps, "berhu_fwd_given_c_launches": steps,
+            "berhu_bwd_launches": steps}
+    for r in two:
+        seen = {k: v for k, v in r["train"]["launches"].items() if v}
+        if r["train"]["steps"] != steps or seen != want:
+            raise AssertionError(f"spatial CLI rank {r['rank']}: {r['train']['steps']} steps, "
+                                 f"launches {seen}, want {want}")
+    ckpts = sorted((tmp / "ck" / "spatial").glob("*/dispnet_checkpoint.pth.tar"))
+    if len(ckpts) != 1:
+        raise AssertionError(f"want one checkpoint, got {ckpts}")
+    model = get_disp_net("disp_res_50", device=CARD)
+    model.load_state_dict(torch.load(ckpts[0], map_location=CARD,
+                                     weights_only=True)["state_dict"], strict=True)
+    # full float32, as the ranks' trainers set it, whatever phase ran
+    # before: with PyTorch's default TF32 convolutions this 1-rank eval, not
+    # the 2 shards', is the one that parts from a float64 eval by over 1e-4
+    set_fp32_math()
+    batch = _parallel_runner().global_batch("berhu")
+    val = {"img": torch.as_tensor(batch["tgt"], device=CARD),
+           "depth": torch.as_tensor(batch["depth"], device=CARD)}
+    aug = aug_config(TrainerConfig())
+    one_eval = {k: float(v) for k, v in make_eval_step(model, aug=aug, mesh=Mesh())(val).items()}
+    with torch.no_grad():
+        depth = output_depth(model(normalize_images(imgs_to_float(val["img"]), aug.mean,
+                                                    aug.std))).cpu()
+    two_depth = torch.cat([torch.load(tmp / "ranks2" / f"eval_depth{r}.pt") for r in range(2)],
+                          dim=1)
+    rel = (two_depth - depth).abs() / depth.abs()
+    depth_rel = float(rel.max())
+    valid = float(((val["depth"] > 0) & (val["depth"] < 80.0)).sum())
+    digests = [r["train"]["eval"].pop("state_digest") for r in two]
+    two_eval = two[0]["train"]["eval"]
+    bad = [] if digests == [_parallel_runner().state_digest(model)] * 2 else [
+        "the ranks' models and the checkpoint differ"]
+    bad += [k for k in one_eval if not (
+        abs(two_eval[k] - one_eval[k]) * valid <= 10 if k in ("a1", "a2", "a3")
+        else math.isclose(two_eval[k], one_eval[k], rel_tol=1e-4, abs_tol=1e-7))]
+    if depth_rel > 1e-4:
+        where = torch.nonzero(rel == rel.max())[0].tolist()
+        bad.append(f"depth map rel {depth_rel:.3g} ({int((rel > 1e-4).sum())} pixels over 1e-4; "
+                   f"the worst at (b, y, x) {where[:3]} of {list(rel.shape[:3])}: "
+                   f"{float(two_depth[tuple(where)]):.6g} against {float(depth[tuple(where)]):.6g})")
+    print(f"  spatial CLI: {steps} DispResNet-50 BerHu steps on 2 spatial ranks, wall "
+          f"{two[0]['train']['wall_s']:.1f} s; launches a rank {want}; the checkpoint's eval "
+          f"on 2 shards {json.dumps({k: round(v, 6) for k, v in two_eval.items()})} against 1 "
+          f"rank {json.dumps({k: round(v, 6) for k, v in one_eval.items()})}; depth maps max "
+          f"rel {depth_rel:.3g} (limit 1e-4); {valid:.0f} valid pixels", flush=True)
+    if bad:
+        raise AssertionError(f"spatial CLI: the 2-shard eval parts from the 1-rank eval of "
+                             f"its checkpoint on {bad}")
+    report["cli"] = {"launches": [r["train"]["launches"] for r in two],
+                     "wall_s": [r["train"]["wall_s"] for r in two],
+                     "eval_two_shards": two_eval, "eval_one_rank": one_eval,
+                     "depth_rel_max": depth_rel}
+    report["guard"] = spatial_guard(torch)
+    print(f"  spatial guard: {report['guard']}", flush=True)
+    report["phase_s"] = time.perf_counter() - t0
+    print(f"  spatial phase: {report['phase_s']:.1f} s", flush=True)
+    return report
+
+
 def main() -> int:
     import torch
 
@@ -5107,6 +5363,7 @@ def main() -> int:
         loaders = device_loader_phase(torch, Path(tmp) / "loaders", card)
         etl = etl_phase(torch, Path(tmp) / "etl", card)
         par, par_entry = parallel_phase(torch, Path(tmp) / "parallel", card)
+        spt = spatial_phase(torch, Path(tmp) / "spatial", card, Path(tmp) / "parallel")
     iw = inverse_warp_phase(torch)
     xc = {**cross_check(torch), **selfsup_cross_check(torch)}
     conv = convergence_phase(torch)
@@ -5161,7 +5418,7 @@ def main() -> int:
     print(json.dumps({"int8": i8}))
     print(json.dumps({"photometric_arms": arms, "loaders": loaders, "etl": etl,
                       "convergence": conv}))
-    print(json.dumps({"parallel": par}))
+    print(json.dumps({"parallel": par, "spatial": spt}))
     print(json.dumps({"kernels": list(kernels.values())}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -28,10 +28,21 @@ Rank r runs on ``cuda:{LOCAL_RANK}`` over NCCL, or over gloo where ranks
 share a card or run on the CPU (``--device cpu``). Rank 0 alone prints and
 writes the logs and checkpoints.
 
+``--spatial-shards S`` also splits the image height over S ranks (the world
+is ``N / S`` data ranks x S spatial ranks; ``parallel/spatial.py``), for
+inputs whose activations outgrow one card; the height must be a multiple of
+the network's deepest stride (32, DispNetS 128) and hold at least S of its
+rows. The supervised and classification losses and validation run on it;
+``--loss selfsup`` and ``--qat`` raise (ROADMAP A6b-2):
+
+  python -m torch.distributed.run --nproc-per-node 2 \
+      -m supervised_dispnet_tpu_torch.cli.train /data/kitti_packed \
+      --network disp_res_50 --loss berhu -b 2 --spatial-shards 2
+
 Reads a packed dataset root (``data/packed.py``) or a dump tree of JPEG
 frames (``data/prepare_train_data.py``; decoded on the ``-j`` host threads).
 Runs on the card unless
-``--device cpu`` is given. A JAX flag whose feature is not ported yet raises
+``--device cpu`` is given. An option that is not ported yet raises
 ``NotImplementedError``; it is never ignored.
 """
 
@@ -42,10 +53,6 @@ import datetime
 import sys
 from pathlib import Path
 
-from supervised_dispnet_tpu_torch.cli import parse_args_or_raise
-
-# JAX CLI flags of features that later slices port (see ROADMAP.md)
-_LATER_FLAGS = frozenset(("--spatial-shards",))
 REMAT_CHOICES = ("full", "conv")
 
 
@@ -168,6 +175,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="--loader device only: run this many train steps from one "
                         "block of index batches, their metrics read back once "
                         "(logged as means over the block)")
+    p.add_argument("--spatial-shards", type=int, default=1,
+                   help="> 1: also split the image height over this many ranks (a "
+                        "second mesh axis, halo exchanges), for full-resolution inputs "
+                        "whose activations outgrow one card; needs height / max-stride "
+                        ">= shards and a number of ranks divisible by shards; not with "
+                        "--loss selfsup or --qat")
     p.add_argument("--max-depth", type=float, default=80.0)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--img-height", type=int, default=128,
@@ -197,8 +210,7 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     argv = ["--remat=full" if tok == "--remat" and (i + 1 == len(argv)
                                                     or argv[i + 1] not in REMAT_CHOICES)
             else tok for i, tok in enumerate(argv)]
-    return parse_args_or_raise(build_parser(), argv, _LATER_FLAGS,
-                               where="ROADMAP.md (queue item A6b)")
+    return build_parser().parse_args(argv)
 
 
 def load_pretrained_encoder(model, path: str | Path, network: str) -> None:
@@ -260,9 +272,14 @@ def main(argv: list[str] | None = None):
     import torch.distributed as dist
 
     from supervised_dispnet_tpu_torch.parallel import mesh as parallel
+    from supervised_dispnet_tpu_torch.training.train_step import (
+        QAT_NOT_SPATIAL, SELFSUP_NOT_SPATIAL)
 
+    if args.spatial_shards > 1 and (args.loss == "selfsup" or args.qat):
+        raise NotImplementedError(SELFSUP_NOT_SPATIAL if args.loss == "selfsup"
+                                  else QAT_NOT_SPATIAL)
     joins = parallel.launched() and not dist.is_initialized()
-    device, mesh = parallel.init_from_env(args.device)
+    device, mesh = parallel.init_from_env(args.device, args.spatial_shards)
     try:
         return _train(args, device, mesh)
     finally:
@@ -297,7 +314,8 @@ def _train(args: argparse.Namespace, device, mesh):
         profile_steps=args.profile_steps, resume=args.resume,
         half_res_photo=args.half_res_photo, stochastic_photo=args.stochastic_photo,
         training_output_freq=args.training_output_freq, loader=args.loader,
-        workers=args.workers, steps_per_dispatch=args.steps_per_dispatch)
+        workers=args.workers, steps_per_dispatch=args.steps_per_dispatch,
+        spatial_shards=args.spatial_shards)
     head = "classification" if args.loss == "classification" else "disp"
     model = get_disp_net(args.network, head=head, num_bins=args.num_bins,
                          multiscale_classification=args.multiscale_classification,

@@ -120,11 +120,12 @@ def augment_batch(
     optional (B, H, W) sparse GT (zeros = missing). Returns (imgs,
     intrinsics[, depth]) with imgs normalised; same shapes. On ``mesh`` the
     batch is this rank's rows (``Mesh.rows``) of a global batch of B x
-    ranks, and ``draws``, given or drawn, are the global batch's.
+    the data axis's ranks, and ``draws``, given or drawn, are the global
+    batch's.
     """
     B, S, H, W, _ = imgs.shape
     dev, f32 = imgs.device, torch.float32
-    ranks = mesh.size if mesh is not None else 1
+    ranks = mesh.data_size if mesh is not None else 1
     if draws is None:
         draws = draw_augment(B * ranks, H, W, config, generator, dev)
     if ranks > 1:

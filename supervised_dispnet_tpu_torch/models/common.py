@@ -19,8 +19,14 @@ the CPU and CUDA): a trunk ``Conv2d`` / ``ConvTranspose2d`` with
 ``compute_dtype`` set computes in it from its input, weight and bias cast to
 it, and adds the bias to its rounded output; ``BatchNorm2d`` takes its
 statistics and normalises in float32 and returns the compute dtype. The
-heads are plain ``nn.Conv2d``s that run in float32. Parameters stay float32
+heads are ``FloatConv2d``s that run in float32. Parameters stay float32
 throughout, so their gradients do too.
+
+**Spatial partitioning.** The trunk convs, ``FloatConv2d`` (the heads, FCRN)
+and the transposed convs run their window over this rank's rows with the
+halo rows of its neighbours (``parallel/spatial.py``) inside a step on a mesh
+with a spatial axis; so do ``crop_like`` and the fused decoder stage.
+Train-mode BatchNorm takes its statistics over the whole mesh then.
 
 **Remat.** ``remat_call`` runs a block under ``torch.utils.checkpoint``:
 ``"full"`` saves nothing of it, ``"conv"`` saves the convolutions' (and
@@ -43,6 +49,7 @@ from torch.utils.checkpoint import (
     CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts)
 
 from supervised_dispnet_tpu_torch.ops.fused_upconv import upconv2x_fused
+from supervised_dispnet_tpu_torch.parallel import spatial
 from supervised_dispnet_tpu_torch.parallel.mesh import active_mesh, all_reduce_sum
 
 # Disparity head output scaling (reference: DispNetS alpha/beta constants).
@@ -98,7 +105,17 @@ class _ComputeParams:
         return self.weight.to(dt), None if self.bias is None else self.bias.to(dt)
 
 
-class Conv2d(_ComputeParams, nn.Conv2d):
+class _RowConv:
+    """An ``nn.Conv2d`` whose window runs over this rank's rows and its
+    neighbours' halo rows under spatial partitioning (the plain conv
+    otherwise)."""
+
+    def _conv_forward(self, x, weight, bias):
+        return spatial.conv2d(x, weight, bias, self.stride, self.padding, self.dilation,
+                              self.groups)
+
+
+class Conv2d(_RowConv, _ComputeParams, nn.Conv2d):
     """A trunk conv: ``nn.Conv2d`` that, with ``compute_dtype`` set, computes
     in it (flax ``nn.Conv(dtype=)``). Its state dict is ``nn.Conv2d``'s."""
 
@@ -112,9 +129,10 @@ class Conv2d(_ComputeParams, nn.Conv2d):
         return _add_bias(self._conv_forward(x.to(self.compute_dtype), weight, None), bias)
 
 
-class FloatConv2d(nn.Conv2d):
-    """A float32 conv outside the trunk's compute dtype (the bin-logit heads,
-    FCRN) that QAT fake-quantizes. Its state dict is ``nn.Conv2d``'s."""
+class FloatConv2d(_RowConv, nn.Conv2d):
+    """A float32 conv outside the trunk's compute dtype (the disparity and
+    bin-logit heads, FCRN) that QAT fake-quantizes (all but the one-channel
+    disparity heads). Its state dict is ``nn.Conv2d``'s."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         fq = fake_quant_context(self)
@@ -125,11 +143,15 @@ class ConvTranspose2d(_ComputeParams, nn.ConvTranspose2d):
     """A trunk transposed conv with ``compute_dtype``, as ``Conv2d``."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.compute_dtype is None:
+        if self.compute_dtype is None and spatial.active() is None:
             return super().forward(x)
         weight, bias = self.compute_params()
-        y = F.conv_transpose2d(x.to(self.compute_dtype), weight, None, self.stride,
-                               self.padding, self.output_padding, self.groups, self.dilation)
+        if self.compute_dtype is None:
+            return spatial.conv_transpose2d(x, weight, bias, self.stride, self.padding,
+                                            self.output_padding, self.groups, self.dilation)
+        y = spatial.conv_transpose2d(x.to(self.compute_dtype), weight, None, self.stride,
+                                     self.padding, self.output_padding, self.groups,
+                                     self.dilation)
         return _add_bias(y, bias)
 
 
@@ -166,8 +188,9 @@ class UpConvELU(nn.Sequential):
 
 def crop_like(x: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
     """Crop NCHW ``x`` to ``ref``'s height and width (a transposed conv
-    overshoots odd sizes by one)."""
-    return x[:, :, : ref.shape[2], : ref.shape[3]]
+    overshoots odd sizes by one); under spatial partitioning only the shard
+    at the image's bottom may lose rows."""
+    return spatial.crop_rows_like(x, ref)
 
 
 def kaiming_normal_(conv: nn.Conv2d, generator: torch.Generator | None) -> None:
@@ -192,7 +215,10 @@ class BatchNorm2d(nn.BatchNorm2d):
     semantics. ``torch.nn.BatchNorm2d`` updates ``running_var`` with the
     unbiased batch variance; flax (and so the JAX package) uses the biased
     one, which this module does. Normalisation in train mode uses the biased
-    batch variance in both. State-dict layout is torch's.
+    batch variance in both. State-dict layout is torch's. The batch
+    variance is two-pass, the mean of the squared deviations from the mean,
+    on one process and on a mesh (ROADMAP C12): flax's fast variance,
+    E[x^2] - E[x]^2, is not copied.
 
     With ``compute_dtype`` set (flax's ``dtype``), statistics and
     normalisation are float32 and the output is ``compute_dtype``. A
@@ -209,8 +235,8 @@ class BatchNorm2d(nn.BatchNorm2d):
         # weight and bias) and comes back bf16: flax's rounding points
         if not self.training:
             y = super().forward(x)
-        elif active_mesh() is not None:
-            y = self._global_batch_norm(x)
+        elif (mesh := active_mesh()) is not None:
+            y = self._global_batch_norm(x, mesh)
         else:
             if not _RECOMPUTING.get():
                 with torch.no_grad():
@@ -222,27 +248,46 @@ class BatchNorm2d(nn.BatchNorm2d):
             y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
         return y if self.compute_dtype is None else y.to(self.compute_dtype)
 
-    def _global_batch_norm(self, x: torch.Tensor) -> torch.Tensor:
-        """Train mode on a data-parallel mesh: the statistics of the global
-        batch, as the JAX mesh takes them (flax's fast variance, E[x^2] -
-        E[x]^2 clipped at 0, in float32), from one all-reduce of this rank's
-        sums and count; the gradient flows through the sums to every
-        rank's rows."""
+    def _global_batch_norm(self, x: torch.Tensor, mesh) -> torch.Tensor:
+        """Train mode on a mesh: the statistics of every rank's rows, as
+        exact as the one-process path's two-pass ones (ROADMAP C12), from
+        one all-reduce. Each rank puts its rows' sums, count, and sums of
+        squared deviations from its own mean into its slot of a (ranks,
+        2C + 1) table, and the all-reduce fills in the other ranks' slots.
+        The global mean is the sums' sum over the count; Chan's formula
+        gives the global sum of squared deviations: the ranks' own plus
+        each count times its mean's squared distance from the global mean.
+        flax's fast variance, E[x^2] - E[x]^2 in float32, loses the
+        variance of a channel whose mean is far above its spread (1e3 +- 1:
+        3.31 for 0.989 in flax, PERF.md section 7). The gradient flows
+        through the table to every rank's rows."""
         xf = x.to(torch.float32)
         C = x.shape[1]
-        count = torch.full((1,), xf.numel() // C, dtype=torch.float32, device=x.device)
-        sums = all_reduce_sum(torch.cat([xf.sum(dim=(0, 2, 3)), (xf * xf).sum(dim=(0, 2, 3)),
-                                         count]))
-        n = sums[2 * C]
-        mean = sums[:C] / n
-        var = (sums[C:2 * C] / n - mean * mean).clamp(min=0.0)
+        n_local = xf.numel() // C
+        sums = xf.sum(dim=(0, 2, 3))
+        mean_local = sums / n_local
+        dev = xf - mean_local[:, None, None]
+        count = torch.full((1,), float(n_local), dtype=torch.float32, device=x.device)
+        mine = torch.cat([sums, (dev * dev).sum(dim=(0, 2, 3)), count])
+        slots = [torch.zeros_like(mine)] * mesh.size
+        slots[mesh.rank] = mine
+        table = all_reduce_sum(torch.stack(slots))
+        counts = table[:, 2 * C:]
+        n = counts.sum()
+        mean = table[:, :C].sum(dim=0) / n
+        spread = counts * (table[:, :C] / counts.clamp(min=1.0) - mean) ** 2
+        var = (table[:, C:2 * C].sum(dim=0) + spread.sum(dim=0)) / n
         if not _RECOMPUTING.get():
             with torch.no_grad():
                 self.running_mean.lerp_(mean.detach(), self.momentum)
                 self.running_var.lerp_(var.detach(), self.momentum)
                 self.num_batches_tracked += 1
         scale = torch.rsqrt(var + self.eps) * self.weight
-        y = (xf - mean[:, None, None]) * scale[:, None, None] + self.bias[:, None, None]
+        # from the deviations already kept for the backward: x - mean is
+        # (x - this rank's mean) + (this rank's mean - mean), and the
+        # autograd graph holds one activation-sized tensor, not two
+        shift = (mean_local - mean) * scale + self.bias
+        y = dev * scale[:, None, None] + shift[:, None, None]
         return y.to(x.dtype)
 
 
@@ -331,7 +376,7 @@ class DispHead(nn.Sequential):
 
     def __init__(self, in_channels: int, alpha: float = DISP_ALPHA,
                  beta: float = DISP_BETA):
-        super().__init__(nn.Conv2d(in_channels, 1, 3, padding=1))
+        super().__init__(FloatConv2d(in_channels, 1, 3, padding=1))
         self.alpha = alpha
         self.beta = beta
 
@@ -360,7 +405,11 @@ def fused_upsample_conv(conv: Conv2d, h: torch.Tensor, skip: torch.Tensor | None
         return fq.fused(conv, h, skip)
     ch = h.shape[1]
     weight, bias = conv.compute_params()
-    y = upconv2x_fused(h.to(weight.dtype), weight[:, :ch])
+    # on the spatial axis: the stage over this rank's rows and a halo row
+    # each side, cropped; the strips and corners of its border corrections
+    # land on rows that only the shards at the image's top and bottom keep
+    y = spatial.upsample_rows(lambda t: upconv2x_fused(t, weight[:, :ch]),
+                              h.to(weight.dtype), 2)
     if skip is None:
         return y + bias[:, None, None]
-    return y + F.conv2d(skip.to(weight.dtype), weight[:, ch:], bias, padding=1)
+    return y + spatial.conv2d(skip.to(weight.dtype), weight[:, ch:], bias, padding=1)

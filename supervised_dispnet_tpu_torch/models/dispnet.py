@@ -31,6 +31,7 @@ ENC_KERNELS = (7, 5, 3, 3, 3, 3, 3)
 class DispNetS(nn.Module):
     has_compute_dtype = True
     remat: str | None = None
+    max_stride = 128  # seven stride-2 stages (parallel/spatial.py)
 
     def __init__(self, generator: torch.Generator | None = None):
         super().__init__()

@@ -36,6 +36,7 @@ from supervised_dispnet_tpu_torch.models.common import (
     BatchNorm2d, FloatConv2d, fake_quant_context, remat_call, xavier_uniform_)
 from supervised_dispnet_tpu_torch.models.resnet import ResNetEncoder
 from supervised_dispnet_tpu_torch.ops.resize import interpolate_bilinear
+from supervised_dispnet_tpu_torch.parallel import spatial
 
 
 def unpool_conv(x: torch.Tensor, conv: nn.Module) -> torch.Tensor:
@@ -49,7 +50,7 @@ def unpool_conv(x: torch.Tensor, conv: nn.Module) -> torch.Tensor:
     if fq is not None:
         return fq.unpool(conv, x)
     w = conv.weight.flip(2, 3).transpose(0, 1)
-    return F.conv_transpose2d(x, w, conv.bias, stride=2, padding=2, output_padding=1)
+    return spatial.conv_transpose2d(x, w, conv.bias, stride=2, padding=2, output_padding=1)
 
 
 class UpProjection(nn.Module):

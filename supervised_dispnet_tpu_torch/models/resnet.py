@@ -21,6 +21,7 @@ from torch import nn
 
 from supervised_dispnet_tpu_torch.models.common import (
     BatchNorm2d, Conv2d, kaiming_normal_, remat_call)
+from supervised_dispnet_tpu_torch.parallel import spatial
 
 
 def _norm(ch: int, fold_bn: bool) -> nn.Module:
@@ -122,7 +123,7 @@ class ResNetEncoder(nn.Module):
     def forward(self, x: torch.Tensor) -> list[torch.Tensor]:
         h = F.relu(self.bn1(self.conv1(x)))
         feats = [h]  # 1/2
-        h = F.max_pool2d(h, 3, 2, 1)
+        h = spatial.max_pool2d(h, 3, 2, 1)
         for stage in (self.layer1, self.layer2, self.layer3, self.layer4):
             for block in stage:
                 h = remat_call(self.remat, block, h)

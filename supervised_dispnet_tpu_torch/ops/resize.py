@@ -5,12 +5,18 @@
 when it downsamples and ``F.interpolate`` does not. So the two bilinear
 functions here raise on a downsampling request. ``downsample2x_avg`` is the
 exact 2x2 mean of the photometric pyramid, not a resize.
+
+Under spatial partitioning (``parallel/spatial.py``) the upsample takes this
+rank's rows with a row of each neighbour and crops its output back to its
+own rows; the height must then grow by a whole factor.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from supervised_dispnet_tpu_torch.parallel import spatial
 
 
 def interpolate_bilinear(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
@@ -22,7 +28,15 @@ def interpolate_bilinear(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
         raise NotImplementedError(
             f"bilinear downsampling ({H}x{W} -> {h}x{w}) is not ported: "
             "jax.image.resize antialiases there and F.interpolate does not")
-    return F.interpolate(x, size=(h, w), mode="bilinear", align_corners=False)
+    if spatial.active() is None:
+        return F.interpolate(x, size=(h, w), mode="bilinear", align_corners=False)
+    if h % H:
+        raise ValueError(f"spatial partitioning: a bilinear upsample of {H} rows to {h} "
+                         "is not by a whole factor")
+    f = h // H
+    return spatial.upsample_rows(
+        lambda t: F.interpolate(t, size=(t.shape[2] * f, w), mode="bilinear",
+                                align_corners=False), x, f)
 
 
 def resize_bilinear(x: torch.Tensor, h: int, w: int) -> torch.Tensor:

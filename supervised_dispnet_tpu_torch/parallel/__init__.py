@@ -1,5 +1,6 @@
-"""Data-parallel training over processes (the port of
-``supervised_dispnet_tpu/parallel``, its data axis)."""
+"""Data-parallel training over processes, and spatial partitioning of the
+image height (``spatial.py``): the port of ``supervised_dispnet_tpu/parallel``,
+its data and spatial axes."""
 
 from supervised_dispnet_tpu_torch.parallel.mesh import (
     DATA_AXIS,

@@ -26,13 +26,21 @@ With these, each rank's gradient is that of its share of the mean over the
 ranks of their losses, and the mean over the ranks of the gradients is the
 gradient of the global batch's loss, as the JAX mesh computes it.
 
+``make_mesh(spatial=S)`` adds the spatial axis (``parallel/spatial.py``):
+the world is ``data x spatial``, rank r the data rank ``r // S`` and the
+spatial rank ``r % S`` (the layout of JAX's ``reshape(n // spatial,
+spatial)``). The ranks of one spatial group take the same batch rows
+(``Mesh.rows`` goes by the data rank) and each takes a band of image rows.
+The reductions above stay over the whole world, which is right for both
+axes: every sum and max then covers every row of every image once, and a
+rank's gradient is that of the ops on its own rows, with the halo
+exchanges' backward carrying each halo row's gradient to the rank that
+owns the row. So ``average_gradients`` still divides by the world size.
+
 The reductions read the active mesh (``use_mesh``), which the train and
 eval steps set around their forward and backward. Outside it, and on a mesh
 of one rank, every function here returns its input as it is: a process
 without a process group runs exactly as it would without this module.
-
-The spatial axis (image height over ranks, A6b in ROADMAP.md) is not
-ported: ``make_mesh(spatial > 1)`` raises.
 """
 
 from __future__ import annotations
@@ -47,23 +55,39 @@ import torch.distributed as dist
 
 DATA_AXIS = "data"
 SPATIAL_AXIS = "spatial"
-SPATIAL_NOT_PORTED = ("spatial partitioning (--spatial-shards, image height over a second "
-                      "mesh axis) is not ported yet: it is queue item A6b in ROADMAP.md")
 
 
 @dataclasses.dataclass
 class Mesh:
-    """The data axis as this process sees it: ``size`` ranks of the process
-    group, this one ``rank``, over ``backend``. ``collective_s`` adds up the
-    host seconds spent in the collectives while ``timed`` is set (each then
-    waits for the card first, so that it does not count the work queued
-    before it)."""
+    """The mesh as this process sees it: ``size`` ranks of the process
+    group, this one ``rank``, over ``backend``, in ``size // spatial`` data
+    rows of ``spatial`` ranks (``spatial_group``: this rank's row, the ranks
+    that share its batch rows; ``data_group``: its column). While ``timed``
+    is set, ``collective_s`` adds up the host seconds spent in the
+    all-reduces and ``halo_s`` those in the halo exchanges (each waits for
+    the card first, so that it does not count the work queued before it)."""
 
     size: int = 1
     rank: int = 0
     backend: str | None = None
     timed: bool = False
     collective_s: float = 0.0
+    spatial: int = 1
+    halo_s: float = 0.0
+    spatial_group: object = dataclasses.field(default=None, repr=False, compare=False)
+    data_group: object = dataclasses.field(default=None, repr=False, compare=False)
+
+    @property
+    def data_size(self) -> int:
+        return self.size // self.spatial
+
+    @property
+    def data_rank(self) -> int:
+        return self.rank // self.spatial
+
+    @property
+    def spatial_rank(self) -> int:
+        return self.rank % self.spatial
 
     @property
     def is_main(self) -> bool:
@@ -71,12 +95,13 @@ class Mesh:
         return self.rank == 0
 
     def rows(self, n: int) -> slice:
-        """This rank's contiguous rows of a global batch of ``n``."""
-        if n % self.size:
+        """This rank's contiguous rows of a global batch of ``n``: its data
+        rank's, which every rank of its spatial group shares."""
+        if n % self.data_size:
             raise ValueError(f"the global batch size {n} is not divisible by the "
-                             f"{self.size} ranks of the data axis")
-        b = n // self.size
-        return slice(self.rank * b, (self.rank + 1) * b)
+                             f"{self.data_size} ranks of the data axis")
+        b = n // self.data_size
+        return slice(self.data_rank * b, (self.data_rank + 1) * b)
 
     def all_reduce_(self, t: torch.Tensor, op: str = "sum") -> torch.Tensor:
         """``t`` reduced over the ranks in place (``op``: sum or max)."""
@@ -92,6 +117,22 @@ class Mesh:
             self.collective_s += time.perf_counter() - t0
         return t
 
+    def exchange(self, t: torch.Tensor) -> list[torch.Tensor]:
+        """``t`` of every rank of this rank's spatial group, in spatial rank
+        order (one all-gather; the tensors are alike in shape on every
+        rank). Raises where the exchange fails."""
+        parts = [torch.empty_like(t) for _ in range(self.spatial)]
+        if self.timed:
+            if t.is_cuda:
+                torch.cuda.synchronize(t.device)
+            t0 = time.perf_counter()
+        dist.all_gather(parts, t.contiguous(), group=self.spatial_group)
+        if self.timed:
+            if t.is_cuda:
+                torch.cuda.synchronize(t.device)
+            self.halo_s += time.perf_counter() - t0
+        return parts
+
     def barrier(self) -> None:
         if dist.is_initialized():
             dist.barrier()
@@ -106,20 +147,35 @@ class Mesh:
 
 
 def make_mesh(spatial: int = 1) -> Mesh:
-    """The data axis over the process group this process joined (one rank
-    when it joined none). ``spatial > 1`` raises ``NotImplementedError``
-    (A6b)."""
-    if spatial > 1:
-        raise NotImplementedError(SPATIAL_NOT_PORTED)
+    """The mesh over the process group this process joined (one rank when
+    it joined none): ``data x spatial``, with a process group for each
+    spatial row and each data column where ``spatial > 1``. A world that
+    ``spatial`` does not divide raises ``ValueError``, as the JAX trainer
+    does."""
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if spatial < 1 or world % spatial:
+        raise ValueError(f"--spatial-shards {spatial} must divide the {world} rank(s) of "
+                         "the world (spatial partitioning)")
     if not dist.is_initialized():
         return Mesh()
-    return Mesh(size=dist.get_world_size(), rank=dist.get_rank(),
-                backend=str(dist.get_backend()))
+    mesh = Mesh(size=world, rank=dist.get_rank(), backend=str(dist.get_backend()),
+                spatial=spatial)
+    if spatial > 1:
+        # every rank makes every group, in the same order
+        for d in range(world // spatial):
+            group = dist.new_group(list(range(d * spatial, (d + 1) * spatial)))
+            if d == mesh.data_rank:
+                mesh.spatial_group = group
+        for s in range(spatial):
+            group = dist.new_group(list(range(s, world, spatial)))
+            if s == mesh.spatial_rank:
+                mesh.data_group = group
+    return mesh
 
 
 def spatial_size(mesh: Mesh | None) -> int:
-    """Number of spatial shards: 1 (the spatial axis is not ported)."""
-    return 1
+    """Number of spatial shards (1 without a mesh)."""
+    return 1 if mesh is None else mesh.spatial
 
 
 def choose_backend(device_type: str, local_ranks: int, cards: int) -> str:
@@ -136,16 +192,21 @@ def launched() -> bool:
     return all(k in os.environ for k in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"))
 
 
-def init_from_env(device: str | torch.device = "cuda") -> tuple[torch.device, Mesh]:
+def init_from_env(device: str | torch.device = "cuda",
+                  spatial: int = 1) -> tuple[torch.device, Mesh]:
     """Join the process group that the launcher's environment describes and
-    return this rank's device and the mesh; without that environment, the
-    device as given and a mesh of one rank (no process group).
+    return this rank's device and the mesh (``make_mesh(spatial)``); without
+    that environment, the device as given and a mesh of one rank (no
+    process group; ``spatial > 1`` then raises).
 
     Rank r of a node uses ``cuda:{LOCAL_RANK}``, or card ``LOCAL_RANK % cards``
     where the node's ranks outnumber its cards. The backend follows
     ``choose_backend``, decided once from the layout and printed by rank 0."""
     dev = torch.device(device)
     if not launched():
+        if spatial > 1:
+            raise ValueError(f"--spatial-shards {spatial} must divide the 1 rank of a "
+                             "process the launcher did not start (spatial partitioning)")
         return dev, Mesh()
     local_rank = int(os.environ.get("LOCAL_RANK", 0))
     world = int(os.environ["WORLD_SIZE"])
@@ -157,11 +218,12 @@ def init_from_env(device: str | torch.device = "cuda") -> tuple[torch.device, Me
         torch.cuda.set_device(dev)
     if not dist.is_initialized():
         dist.init_process_group(backend, init_method="env://")
-    mesh = make_mesh()
+    mesh = make_mesh(spatial)
     if mesh.is_main:
         where = (f"{local_ranks} rank(s) on {cards} card(s) of this node" if dev.type == "cuda"
                  else "the CPU")
-        print(f"=> data-parallel: {mesh.size} rank(s), backend {backend} ({where})",
+        axes = f", {mesh.data_size} data x {spatial} spatial" if spatial > 1 else ""
+        print(f"=> data-parallel: {mesh.size} rank(s){axes}, backend {backend} ({where})",
               flush=True)
     return dev, mesh
 

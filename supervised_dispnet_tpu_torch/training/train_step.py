@@ -18,6 +18,14 @@ BatchNorm, the losses, QAT's scales and the metrics reduce over the global
 batch, draws the augmentation for the global batch, and ``ApplyGradients``
 averages the gradients over the ranks before anything else. A mesh of one
 rank is no mesh: the step is the plain one, bit for bit.
+
+On a mesh with a spatial axis (``--spatial-shards``, ``parallel/spatial.py``)
+the supervised and eval steps augment their batch rows at full height, as
+the JAX steps do before ``_spatial_constrain``, then keep this rank's band
+of image rows of the image, the depth and the mask; the model's windows
+take their halo rows from the neighbouring ranks. The guard on the height
+raises before any collective. The self-supervised steps are not ported to
+the spatial axis (ROADMAP A6b-2) and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -36,8 +44,9 @@ from supervised_dispnet_tpu_torch.losses.selfsup import (
     explainability_loss, photometric_reconstruction_loss, smooth_loss)
 from supervised_dispnet_tpu_torch.losses.supervised import (
     berhu_loss, l1_loss, multiscale_supervised_loss, scale_invariant_loss)
+from supervised_dispnet_tpu_torch.parallel import spatial
 from supervised_dispnet_tpu_torch.parallel.mesh import (
-    Mesh, active_mesh, average_gradients, global_mean, use_mesh)
+    Mesh, active_mesh, average_gradients, global_mean, spatial_size, use_mesh)
 
 SUPERVISED_LOSSES: dict[str, Callable] = {
     "l1": l1_loss,
@@ -91,6 +100,21 @@ def _qat(fake_quant: bool) -> contextlib.AbstractContextManager:
 def _data_parallel(mesh: Mesh | None) -> Mesh | None:
     """The mesh a step reduces over: None for no mesh or one of one rank."""
     return mesh if mesh is not None and mesh.size > 1 else None
+
+
+QAT_NOT_SPATIAL = ("--spatial-shards > 1 with --qat is not ported yet: queue item A6b-2 in "
+                   "ROADMAP.md")
+SELFSUP_NOT_SPATIAL = ("--spatial-shards > 1 with --loss selfsup is not ported yet: the "
+                       "self-supervised step on the spatial axis is queue item A6b-2 in "
+                       "ROADMAP.md")
+
+
+def _spatial_rows(mesh: Mesh | None, model: torch.nn.Module, height: int) -> slice | None:
+    """This rank's image rows on a mesh with a spatial axis (the guard
+    raises before any collective), None on one without."""
+    if spatial_size(mesh) == 1:
+        return None
+    return spatial.shard_rows(height, spatial.max_stride(model), mesh)
 
 
 class ApplyGradients:
@@ -251,9 +275,14 @@ def make_supervised_train_step(
     BerHu and the CE on the card run the CUDA kernels, on the CPU their
     plain versions. ``fake_quant`` (QAT) runs the model's forward under
     ``ops/quant.py::fake_quant_methods``. On ``mesh`` the batch is this
-    rank's rows and ``draws`` are the global batch's (module docstring).
+    rank's rows and ``draws`` are the global batch's (module docstring); on
+    its spatial axis the step keeps its band of image rows after the
+    augmentation. QAT on the spatial axis raises ``NotImplementedError``
+    (A6b-2).
     """
     mesh = _data_parallel(mesh)
+    if fake_quant and spatial_size(mesh) > 1:
+        raise NotImplementedError(QAT_NOT_SPATIAL)
     classification = loss_name == "classification"
     if not classification and loss_name not in SUPERVISED_LOSSES:
         raise ValueError(f"unknown supervised loss {loss_name!r}; choices: "
@@ -281,13 +310,17 @@ def make_supervised_train_step(
             imgs_to_float(batch["tgt"])[:, None], batch["intrinsics"],
             depth_to_float(batch["depth"]), config=aug, generator=generator,
             draws=draws, mesh=mesh)
+        x = imgs[:, 0]
+        rows = _spatial_rows(mesh, model, x.shape[1])
+        if rows is not None:
+            x, depth_gt = x[:, rows], depth_gt[:, rows]
         depth_gt = depth_gt.contiguous()
         mask = (depth_gt > 0) & (depth_gt < max_depth)
         model.train()
         optimizer.zero_grad(set_to_none=True)
         with use_mesh(mesh):
             with _qat(fake_quant):
-                out = model(imgs[:, 0])
+                out = model(x)
             # the global batch's loss, the same on every rank
             loss = compute_loss(out, depth_gt, mask)
             loss.backward()
@@ -345,9 +378,12 @@ def make_selfsup_train_step(
     rank's rows, ``draws`` are the global batch's, and ``photo_generator``
     must be seeded alike on every rank; the terms are means over equal
     shares of the batch, so each rank's mean needs no reduction for the
-    gradients, and the returned metrics are their means over the ranks.
+    gradients, and the returned metrics are their means over the ranks. A
+    mesh with a spatial axis raises ``NotImplementedError`` (A6b-2).
     """
     mesh = _data_parallel(mesh)
+    if spatial_size(mesh) > 1:
+        raise NotImplementedError(SELFSUP_NOT_SPATIAL)
     if photo_generator is None:
         photo_generator = torch.Generator().manual_seed(0)
     with_exp = mask_weight > 0
@@ -420,9 +456,12 @@ def make_selfsup_eval_step(
 
     batch: {'tgt', 'ref_imgs', 'intrinsics'}. With ``aug`` set, images arrive
     raw (uint8 or [0, 1] float) and are normalised here. On ``mesh`` the
-    batch is this rank's rows, and the losses the global batch's.
+    batch is this rank's rows, and the losses the global batch's. A mesh
+    with a spatial axis raises ``NotImplementedError`` (A6b-2).
     """
     mesh = _data_parallel(mesh)
+    if spatial_size(mesh) > 1:
+        raise NotImplementedError(SELFSUP_NOT_SPATIAL)
 
     def prep(x: torch.Tensor) -> torch.Tensor:
         x = imgs_to_float(x)
@@ -460,7 +499,9 @@ def make_eval_step(model: torch.nn.Module, classification: bool = False,
     batch: {'img': (B, H, W, 3), 'depth': (B, H, W)}. With ``aug`` set,
     images arrive raw (uint8 or [0, 1] float) and are normalised here;
     depth may arrive fp16 and is evaluated in fp32. On ``mesh`` the batch is
-    this rank's rows, and the metrics the global batch's.
+    this rank's rows, and the metrics the global batch's; on its spatial
+    axis the step keeps this rank's band of image rows of the image and the
+    depth.
     """
     bins = bins or DepthBins()
     mesh = _data_parallel(mesh)
@@ -468,13 +509,16 @@ def make_eval_step(model: torch.nn.Module, classification: bool = False,
     @torch.no_grad()
     def step(batch: dict) -> dict[str, torch.Tensor]:
         img = imgs_to_float(batch["img"])
+        gt = depth_to_float(batch["depth"])
+        rows = _spatial_rows(mesh, model, img.shape[1])
+        if rows is not None:
+            img, gt = img[:, rows], gt[:, rows]
         if aug is not None:
             img = normalize_images(img, aug.mean, aug.std)
         model.eval()
-        out = model(img)
-        depth = output_depth(out, bins if classification else None)
-        gt = depth_to_float(batch["depth"])
         with use_mesh(mesh):
+            out = model(img)
+            depth = output_depth(out, bins if classification else None)
             return compute_errors(gt, depth, (gt > 0) & (gt < max_depth))
 
     return step

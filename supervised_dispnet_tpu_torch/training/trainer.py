@@ -11,7 +11,11 @@ steps, training-output images, and the loaders: host threads, or the split
 held on the device (``--loader device``) with k steps a dispatch; and
 data-parallel over the ranks of a process group (``parallel/mesh.py``): each
 rank loads and trains on its rows of the global batch, and rank 0 alone
-prints and writes the logs, checkpoints and traces.
+prints and writes the logs, checkpoints and traces. With
+``spatial_shards`` S > 1 the ranks form a ``data x spatial`` mesh: the S
+ranks of a spatial group load the same batch rows and each trains on a band
+of the image rows (``parallel/spatial.py``; supervised, classification and
+validation steps).
 """
 
 from __future__ import annotations
@@ -39,9 +43,9 @@ from supervised_dispnet_tpu_torch.models.common import set_compute_dtype
 from supervised_dispnet_tpu_torch.ops.warp import inverse_warp
 from supervised_dispnet_tpu_torch.parallel.mesh import Mesh, make_mesh
 from supervised_dispnet_tpu_torch.training.train_step import (
-    SUPERVISED_LOSSES, disps_to_depths, imgs_to_float, make_eval_step,
-    make_selfsup_eval_step, make_selfsup_train_step, make_supervised_train_step,
-    output_depth)
+    SUPERVISED_LOSSES, disps_to_depths, imgs_to_float,
+    make_eval_step, make_selfsup_eval_step, make_selfsup_train_step,
+    make_supervised_train_step, output_depth)
 from supervised_dispnet_tpu_torch.utils.checkpoint import load_torch_state_dict, save_linked
 from supervised_dispnet_tpu_torch.utils.device import resolve_device, set_fp32_math
 from supervised_dispnet_tpu_torch.utils.logging import (
@@ -107,6 +111,8 @@ class TrainerConfig:
     workers: int = 4  # BatchLoader's gather threads
     steps_per_dispatch: int = 1  # loader="device": k steps from one block of
     #   k index batches, their metrics read back once (logged as means)
+    spatial_shards: int = 1  # > 1: image height over a spatial mesh axis of
+    #   this many ranks (parallel/spatial.py); the world must be a multiple
 
 
 def aug_config(cfg: TrainerConfig) -> AugmentConfig:
@@ -162,21 +168,27 @@ class Trainer:
     JAX trainer's ``clone(dtype=bfloat16)``; one without (FCRN) says so and
     stays float32.
 
-    ``mesh`` is the data axis (default: the process group this process
-    joined, ``parallel.mesh.make_mesh``; one rank without one).
-    ``cfg.batch_size`` is the global batch, which the ranks must divide:
-    each trains on its rows, with the augmentation generator seeded alike on
-    every rank."""
+    ``mesh`` is the mesh (default: the process group this process joined,
+    ``parallel.mesh.make_mesh(cfg.spatial_shards)``; one rank without one).
+    ``cfg.batch_size`` is the global batch, which the ranks of the data
+    axis must divide: each trains on its rows, with the augmentation
+    generator seeded alike on every rank. On a spatial axis the
+    self-supervised loss and QAT raise ``NotImplementedError`` (ROADMAP
+    A6b-2)."""
 
     def __init__(self, cfg: TrainerConfig, disp_model: torch.nn.Module,
                  pose_model: torch.nn.Module | None = None,
                  device: str | torch.device = "cuda", mesh: Mesh | None = None):
         self.device = resolve_device(device)
-        self.mesh = mesh if mesh is not None else make_mesh()
-        if cfg.batch_size % self.mesh.size:
+        self.mesh = mesh if mesh is not None else make_mesh(cfg.spatial_shards)
+        if self.mesh.spatial != cfg.spatial_shards:
+            raise ValueError(f"the mesh has {self.mesh.spatial} spatial shard(s), the config "
+                             f"{cfg.spatial_shards}")
+        if cfg.batch_size % self.mesh.data_size:
             raise ValueError(
                 f"--batch-size {cfg.batch_size} (the global batch) is not divisible by the "
-                f"{self.mesh.size} ranks; launch a number of ranks that divides it")
+                f"{self.mesh.data_size} ranks of the data axis; launch a number of ranks "
+                "that divides it")
         set_fp32_math()
         self.selfsup = cfg.loss == "selfsup"
         self.classification = cfg.loss == "classification"

@@ -10,10 +10,14 @@ decoder and head tensor within 1e-3 of how far the steps moved it
 (measured 1.6e-4), the encoder as a whole within 1e-2 (measured 6.5e-4:
 Adam's first updates, about lr * sign(g), follow the sign of an entry that
 rounding decides; ROADMAP C4), BatchNorm's running statistics rel-L2 1e-4;
-``--resume`` continues on 2 ranks to the second epoch."""
+``--resume`` continues on 2 ranks to the second epoch. The same run with
+``--spatial-shards 2`` (``parallel/spatial.py``: each rank half the image
+rows of the whole batch) equals the one-process run as closely; its
+checkpoint loads into a one-process model, and its run is deleted."""
 
 import json
 import os
+import shutil
 import socket
 import subprocess
 import sys
@@ -111,9 +115,57 @@ def data(tmp_path_factory) -> Path:
     return root
 
 
+@pytest.fixture(scope="module")
+def first_epoch(data, tmp_path_factory):
+    """One epoch on two ranks with ``--loader threads``, launched once: the
+    run that the threads case checks and the resume test continues (each
+    from its own copy); removed after the module."""
+    tmp = tmp_path_factory.mktemp("first_epoch")
+    out = launch(_argv(data, tmp / "two", "--epochs", "1", "--loader", "threads"), tmp)
+    yield tmp / "two", out
+    shutil.rmtree(tmp / "two")
+
+
+@pytest.fixture(scope="module")
+def one_process_epoch(data, tmp_path_factory):
+    """The same epoch in one process with ``--loader threads``: its trainer
+    and logged losses."""
+    one = train_cli.main(_argv(data, tmp_path_factory.mktemp("one"), "--epochs", "1",
+                               "--loader", "threads"))
+    return one, _losses(Path(one.cfg.save_path))
+
+
+def _losses(run: Path) -> list[float]:
+    return [json.loads(x)["loss"] for x in (run / "metrics.jsonl").read_text().splitlines()
+            if '"train_iter"' in x]
+
+
+def hold_like_one_process(two: dict, losses: list[float], one, one_losses) -> None:
+    """A two-rank run's checkpoint and logged losses against the one-process
+    run's (module docstring's tolerances)."""
+    assert one.step == two["step"] == 2
+    init = dict(get_disp_net("disp_res_18", seed=0, device="cpu").named_parameters())
+    ref = one.model.state_dict()
+    enc = [k for k in init if k.startswith("encoder.")]
+    for k in init:
+        if k not in enc:
+            assert _gap(two["state_dict"], ref, init, [k]) <= 1e-3, k
+    assert _gap(two["state_dict"], ref, init, enc) <= 1e-2
+    for k, v in ref.items():
+        if "running_" in k:
+            assert float((two["state_dict"][k] - v).norm()) <= 1e-4 * float(v.norm()), k
+    np.testing.assert_allclose(losses, one_losses, rtol=1e-5)
+
+
 @pytest.mark.parametrize("loader", ["threads", "device"])
-def test_cli_on_two_ranks_writes_one_run_equal_to_one_process(data, tmp_path, loader):
-    out = launch(_argv(data, tmp_path / "two", "--epochs", "1", "--loader", loader), tmp_path)
+def test_cli_on_two_ranks_writes_one_run_equal_to_one_process(data, tmp_path, loader,
+                                                              request):
+    if loader == "threads":
+        first, out = request.getfixturevalue("first_epoch")
+        shutil.copytree(first, tmp_path / "two")
+    else:
+        out = launch(_argv(data, tmp_path / "two", "--epochs", "1", "--loader", loader),
+                     tmp_path)
     assert "=> data-parallel: 2 rank(s), backend gloo" in out[0]
     assert "abs_rel=" in out[0] and "=> saving to" in out[0]
     assert "=> saving to" not in out[1] and "abs_rel=" not in out[1]
@@ -128,26 +180,29 @@ def test_cli_on_two_ranks_writes_one_run_equal_to_one_process(data, tmp_path, lo
     events = [json.loads(x) for x in (run / "metrics.jsonl").read_text().splitlines()]
     assert [e["step"] for e in events if e["event"] == "train_iter"] == [1, 2]
 
-    one = train_cli.main(_argv(data, tmp_path / "one", "--epochs", "1", "--loader", loader))
-    assert one.step == two["step"] == 2
-    init = dict(get_disp_net("disp_res_18", seed=0, device="cpu").named_parameters())
-    ref = one.model.state_dict()
-    enc = [k for k in init if k.startswith("encoder.")]
-    for k in init:
-        if k not in enc:
-            assert _gap(two["state_dict"], ref, init, [k]) <= 1e-3, k
-    assert _gap(two["state_dict"], ref, init, enc) <= 1e-2
-    for k, v in ref.items():
-        if "running_" in k:
-            assert float((two["state_dict"][k] - v).norm()) <= 1e-4 * float(v.norm()), k
-    losses = [e["loss"] for e in events if e["event"] == "train_iter"]
-    want = [json.loads(x)["loss"] for x in (Path(one.cfg.save_path) / "metrics.jsonl")
-            .read_text().splitlines() if '"train_iter"' in x]
-    np.testing.assert_allclose(losses, want, rtol=1e-5)
+    if loader == "threads":
+        one, want = request.getfixturevalue("one_process_epoch")
+    else:
+        one = train_cli.main(_argv(data, tmp_path / "one", "--epochs", "1", "--loader", loader))
+        want = _losses(Path(one.cfg.save_path))
+    hold_like_one_process(two, _losses(run), one, want)
 
 
-def test_resume_continues_on_two_ranks(data, tmp_path):
-    launch(_argv(data, tmp_path, "--epochs", "1"), tmp_path)
+def test_cli_with_spatial_shards_on_two_ranks_equals_one_process(data, tmp_path,
+                                                                 one_process_epoch):
+    out = launch(_argv(data, tmp_path / "two", "--epochs", "1", "--spatial-shards", "2"),
+                 tmp_path)
+    assert "=> data-parallel: 2 rank(s), 1 data x 2 spatial, backend gloo" in out[0]
+    assert "abs_rel=" in out[0] and "=> saving to" in out[0]
+    assert "=> saving to" not in out[1]
+    run, two = _checkpoint(tmp_path / "two")
+    get_disp_net("disp_res_18", device="cpu").load_state_dict(two["state_dict"], strict=True)
+    hold_like_one_process(two, _losses(run), *one_process_epoch)
+    shutil.rmtree(tmp_path / "two")
+
+
+def test_resume_continues_on_two_ranks(data, tmp_path, first_epoch):
+    shutil.copytree(first_epoch[0], tmp_path, dirs_exist_ok=True)
     out = launch(_argv(data, tmp_path, "--epochs", "2", "--resume"), tmp_path)
     assert "=> resumed after epoch 0 (train step 2" in out[0]
     assert "resumed" not in out[1]

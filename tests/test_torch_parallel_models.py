@@ -5,7 +5,11 @@ weights on the same global batches of 4 at 64x96, the default augmentation
 (the port's ranks handed JAX's draws for the global batch):
 
 - DispResNet-18 multi-scale classification (16 bins), 2 Adam steps: the
-  CE's sum and count over the global batch;
+  CE's sum and count over the global batch; and the same on the two ranks
+  as one spatial group (``--spatial-shards 2``: half the image rows each)
+  and on 4 ranks as 2 data x 2 spatial, against the same JAX step, which
+  computes what JAX's ``(data, spatial)`` mesh does
+  (``tests/test_spatial.py``);
 - DispResNet-18 BerHu with QAT, an EMA shadow and 2 micro-batches an
   update, 2 micro-steps: QAT's activation scales over the global batch, the
   accumulation of the averaged gradients into one update and the shadow's
@@ -62,8 +66,9 @@ from supervised_dispnet_tpu.training.trainer import build_optimizer as jax_build
 from supervised_dispnet_tpu_torch.utils.convert import (
     dispnet_from_jax, dispresnet_from_jax, posexpnet_from_jax)
 from tests.test_torch_parallel import (
-    AUG, B, H, LR, W, _batch, hold_running_stats, jax_draws, run_jax_steps, update_gap)
-from tests.torch_ranks import spawn
+    AUG, B, H, LR, W, _batch, hold_running_stats, jax_draws, run_jax_steps, step_rngs,
+    update_gap)
+from tests.torch_ranks import start
 from tests.torch_threads import cap_torch_threads
 
 cap_torch_threads()
@@ -108,10 +113,24 @@ def hold_update_direction(got: dict, ref: dict, init: dict) -> None:
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
+    """The port's ranks run the train cases while JAX compiles: every JAX
+    step's draws (and the stochastic arm's phases) follow from the state's
+    rng before any step runs (``step_rngs``); the self-supervised
+    validation, which takes JAX's weights after the last run, is handed to
+    the ranks last."""
     mesh = jax_make_mesh(jax.devices()[:2])
-    cases, refs = {}, {}
-    key_of = {"supervised": lambda rng: jax_draws(jax.random.split(rng)[1], AUG, B, H, W),
-              "selfsup": lambda rng: jax_draws(jax.random.split(rng, 3)[1], AUG, B, H, W)}
+    cases, refs, jax_runs = {}, {}, {}
+
+    def sup_draws(rng):
+        return jax_draws(jax.random.split(rng)[1], AUG, B, H, W)
+
+    def ss_draws(rng):
+        return jax_draws(jax.random.split(rng, 3)[1], AUG, B, H, W)
+
+    def ss_phases(rng):
+        photo_key = jax.random.split(rng, 3)[2]
+        return tuple(tuple(int(v) for v in jax.random.randint(
+            jax.random.fold_in(photo_key, s), (2,), 0, 2)) for s in range(4))
 
     # multi-scale classification
     bins = jax_cls.DepthBins(num_bins=K)
@@ -124,52 +143,53 @@ def runs(tmp_path_factory):
             jax.device_get(st.params["disp"]), jax.device_get(st.batch_stats["disp"]), DEPTH,
             "classification", True).items()}
 
-    step = jax_make_step(model, "classification", bins=bins, aug=AUG, donate=False, mesh=mesh)
     batches = [_batch(10), _batch(11)]
-    st, losses, draws = run_jax_steps(step, st0, batches, mesh, key_of["supervised"])
     init = cls_sd(st0)
+    draws = [sup_draws(r) for r in step_rngs(st0.rng, len(batches))]
     cases["classification"] = {
         "kind": "supervised", "loss": "classification", "lr": LR, "batches": batches,
         "draws": draws, "model": {"depth": DEPTH, "head": "classification", "num_bins": K,
                                   "multiscale": True},
         "state_dict": {k.removeprefix("disp."): v for k, v in init.items()}}
-    refs["classification"] = {"losses": losses, "state": cls_sd(st), "init": init}
+    refs["classification"] = {"init": init}
+    jax_runs["classification"] = (
+        lambda: jax_make_step(model, "classification", bins=bins, aug=AUG, donate=False,
+                              mesh=mesh), st0, batches, sup_draws, draws, cls_sd)
 
     # BerHu with QAT, EMA and 2 micro-batches an update
-    model = JaxDispResNet(encoder_depth=DEPTH)
+    smodel = JaxDispResNet(encoder_depth=DEPTH)
     tx = jax_build_optimizer(JaxTrainerConfig(lr=LR, accum_steps=2))
-    st0 = create_train_state(model, (jnp.zeros((B, H, W, 3)),), tx, seed=0, ema=True)
+    sst0 = create_train_state(smodel, (jnp.zeros((B, H, W, 3)),), tx, seed=0, ema=True)
 
     def sup_sd(params, stats):
         return {f"disp.{k}": v for k, v in dispresnet_from_jax(
             jax.device_get(params), jax.device_get(stats), DEPTH).items()}
 
-    step = jax_make_step(model, "berhu", aug=AUG, donate=False, mesh=mesh, fake_quant=True,
-                         ema_decay=0.9, accum_steps=2)
     batches = [_batch(20 + i) for i in range(2)]
-    st, losses, draws = run_jax_steps(step, st0, batches, mesh, key_of["supervised"])
-    init = sup_sd(st0.params["disp"], st0.batch_stats["disp"])
+    init = sup_sd(sst0.params["disp"], sst0.batch_stats["disp"])
+    draws = [sup_draws(r) for r in step_rngs(sst0.rng, len(batches))]
     cases["qat ema accum"] = {
         "kind": "supervised", "loss": "berhu", "lr": LR, "batches": batches, "draws": draws,
         "model": {"depth": DEPTH}, "opts": {"fake_quant": True, "ema_decay": 0.9,
                                             "accum_steps": 2},
         "state_dict": {k.removeprefix("disp."): v for k, v in init.items()}}
-    refs["qat ema accum"] = {
-        "losses": losses, "init": init,
-        "state": sup_sd(st.params["disp"], st.batch_stats["disp"]),
-        "ema": sup_sd(st.ema_params["disp"], st.batch_stats["disp"])}
+    refs["qat ema accum"] = {"init": init}
+    jax_runs["qat ema accum"] = (
+        lambda: jax_make_step(smodel, "berhu", aug=AUG, donate=False, mesh=mesh,
+                              fake_quant=True, ema_decay=0.9, accum_steps=2),
+        sst0, batches, sup_draws, draws, None)
 
     # self-supervised, with the explainability head unused, then with it and
     # the stochastic photometric arm
     dmodel, pmodel = JaxDispNetS(), JaxPoseExpNet(nb_ref_imgs=R)
     zeros = jnp.zeros((B, H, W, 3))
-    st0 = create_train_state(dmodel, (zeros,), optax.adam(LR), seed=0,
-                             extra_models={"pose": (pmodel, (zeros, [zeros] * R))})
-    params = jax.device_get(st0.params)
+    pst0 = create_train_state(dmodel, (zeros,), optax.adam(LR), seed=0,
+                              extra_models={"pose": (pmodel, (zeros, [zeros] * R))})
+    params = jax.device_get(pst0.params)
     # a pose of ~1e-2, off whole pixels (tests/test_torch_selfsup_step.py)
     params["pose"]["pose_pred"]["bias"] = np.random.default_rng(1).normal(
         0.0, 2.0, (6 * R,)).astype(np.float32)
-    st0 = st0.replace(params=jax.tree.map(jnp.asarray, params))
+    pst0 = pst0.replace(params=jax.tree.map(jnp.asarray, params))
 
     def ss_sd(p):
         p = jax.device_get(p)
@@ -177,40 +197,57 @@ def runs(tmp_path_factory):
                 **{f"pose.{k}": v for k, v in posexpnet_from_jax(p["pose"]).items()}}
 
     batches = [_snippets(30), _snippets(31)]
+    rngs = step_rngs(pst0.rng, len(batches), parts=3)
+    init = ss_sd(pst0.params)
     for name, opts in SELFSUP.items():
         weights = {**SELFSUP_WEIGHTS, **{k: v for k, v in opts.items() if k.endswith("weight")}}
         arm = {k: v for k, v in opts.items() if not k.endswith("weight")}
-        step = jax_make_selfsup_step(dmodel, pmodel, nb_ref_imgs=R, aug=AUG, donate=False,
-                                     mesh=mesh, **weights, **arm)
-        phases = []
-
-        def draws_of(rng, arm=arm, phases=phases):
-            if arm.get("stochastic_photo"):
-                photo_key = jax.random.split(rng, 3)[2]
-                phases.append(tuple(tuple(int(v) for v in jax.random.randint(
-                    jax.random.fold_in(photo_key, s), (2,), 0, 2)) for s in range(4)))
-            return key_of["selfsup"](rng)
-
-        st, losses, draws = run_jax_steps(step, st0, batches, mesh, draws_of)
-        init = ss_sd(st0.params)
+        draws = [ss_draws(r) for r in rngs]
         cases[name] = {"kind": "selfsup", "refs": R, "weights": weights, "opts": arm,
-                       "lr": LR, "batches": batches, "draws": draws, "phases": phases,
+                       "lr": LR, "batches": batches, "draws": draws,
+                       "phases": [ss_phases(r) for r in rngs] if arm else [],
                        "pose_exp": True,
                        "disp_sd": {k[5:]: v for k, v in init.items() if k[:5] == "disp."},
                        "pose_sd": {k[5:]: v for k, v in init.items() if k[:5] == "pose."}}
-        refs[name] = {"losses": losses, "state": ss_sd(st.params), "init": init}
-    # the self-supervised validation step, from the last run's weights
-    val = _snippets(32)
-    ref_eval = jax_make_selfsup_eval(dmodel, pmodel, nb_ref_imgs=R, aug=AUG, mesh=mesh)(
-        st.params, st.batch_stats, jax_shard_batch(
-            {k: jnp.asarray(v) for k, v in val.items()}, mesh))
+        refs[name] = {"init": init}
+        jax_runs[name] = (
+            lambda weights=weights, arm=arm: jax_make_selfsup_step(
+                dmodel, pmodel, nb_ref_imgs=R, aug=AUG, donate=False, mesh=mesh, **weights,
+                **arm), pst0, batches, ss_draws, draws, None)
+
+    cases["classification spatial"] = {**cases["classification"], "spatial": 2}
+    refs["classification spatial"] = refs["classification"]
+    ranks = start(cases, tmp_path_factory.mktemp("ranks"))
+    # 2 data x 2 spatial ranks
+    ranks4 = start({"classification 2x2": cases["classification spatial"]},
+                   tmp_path_factory.mktemp("ranks4"), world=4)
+    ranks4.late({})
+    try:
+        for name, (make, state, batches, draws_of, draws, to_sd) in jax_runs.items():
+            st, losses, ran = run_jax_steps(make(), state, batches, mesh, draws_of)
+            assert all(np.array_equal(a[k], b[k]) for a, b in zip(ran, draws) for k in a)
+            refs[name]["losses"] = losses
+            if name == "qat ema accum":
+                refs[name]["state"] = sup_sd(st.params["disp"], st.batch_stats["disp"])
+                refs[name]["ema"] = sup_sd(st.ema_params["disp"], st.batch_stats["disp"])
+            else:
+                refs[name]["state"] = (to_sd or ss_sd)(st if to_sd else st.params)
+        # the self-supervised validation step, from the last run's weights
+        val = _snippets(32)
+        ref_eval = jax_make_selfsup_eval(dmodel, pmodel, nb_ref_imgs=R, aug=AUG, mesh=mesh)(
+            st.params, st.batch_stats, jax_shard_batch(
+                {k: jnp.asarray(v) for k, v in val.items()}, mesh))
+        refs["selfsup eval"] = {k: float(v) for k, v in ref_eval.items()}
+    except BaseException:
+        ranks.kill()
+        ranks4.kill()
+        raise
     trained = ss_sd(st.params)
-    cases["selfsup eval"] = {
+    ranks.late({"selfsup eval": {
         "kind": "selfsup_eval", "refs": R, "weights": SELFSUP_WEIGHTS, "batches": [val],
         "disp_sd": {k[5:]: v for k, v in trained.items() if k[:5] == "disp."},
-        "pose_sd": {k[5:]: v for k, v in trained.items() if k[:5] == "pose."}}
-    refs["selfsup eval"] = {k: float(v) for k, v in ref_eval.items()}
-    return {"ranks": spawn(cases, tmp_path_factory.mktemp("ranks")), "refs": refs}
+        "pose_sd": {k[5:]: v for k, v in trained.items() if k[:5] == "pose."}}})
+    return {"ranks": ranks.wait(), "ranks4": ranks4.wait(), "refs": refs}
 
 
 def _check(runs, name: str) -> tuple[dict, dict]:
@@ -231,6 +268,30 @@ def _check(runs, name: str) -> tuple[dict, dict]:
 def test_multiscale_classification_matches_the_jax_mesh_step(runs):
     r0, ref = _check(runs, "classification")
     got = {k: v for k, v in r0["state"].items() if k in ref["state"]}
+    assert hold_running_stats(got, ref["state"]) > 0
+    hold_updates(got, {k: v for k, v in ref["state"].items() if "running_" not in k and
+                       "num_batches" not in k}, ref["init"])
+
+
+def test_multiscale_classification_on_a_spatial_mesh_matches_the_jax_mesh_step(runs):
+    r0, ref = _check(runs, "classification spatial")
+    got = {k: v for k, v in r0["state"].items() if k in ref["state"]}
+    assert hold_running_stats(got, ref["state"]) > 0
+    hold_updates(got, {k: v for k, v in ref["state"].items() if "running_" not in k and
+                       "num_batches" not in k}, ref["init"])
+
+
+def test_multiscale_classification_on_a_two_by_two_mesh_matches_the_jax_mesh_step(runs):
+    """4 ranks, 2 data x 2 spatial, against the same JAX step; the four
+    ranks hold the same state bit for bit."""
+    ref = runs["refs"]["classification"]
+    r = [x["classification 2x2"] for x in runs["ranks4"]]
+    assert not [x["raised"] for x in r if "raised" in x]
+    assert len({x["digest"] for x in r}) == 1
+    for x in r:
+        np.testing.assert_allclose([m["loss"] for m in x["metrics"]],
+                                   [m["loss"] for m in ref["losses"]], rtol=1e-4)
+    got = {k: v for k, v in r[0]["state"].items() if k in ref["state"]}
     assert hold_running_stats(got, ref["state"]) > 0
     hold_updates(got, {k: v for k, v in ref["state"].items() if "running_" not in k and
                        "num_batches" not in k}, ref["init"])

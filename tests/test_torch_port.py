@@ -169,9 +169,11 @@ def test_card_math_is_full_fp32_unless_tf32_is_asked_for(tf32_flags):
 
 # Cases whose flags a slice has ported point at a feature still unported,
 # beside the ported flag where one fits, under the ids they had. With the
-# int8 path and QAT ported, --spatial-shards is the flag that raises.
+# spatial axis ported for the supervised steps, --spatial-shards raises with
+# --loss selfsup or --qat (queue item A6b-2).
 @pytest.mark.parametrize("cli,argv,err", [
-    ("train", ["--spatial-shards", "2"], "--spatial-shards"),
+    pytest.param("train", ["--loss", "selfsup", "--spatial-shards", "2"], "--spatial-shards",
+                 id="train-argv0---spatial-shards"),
     pytest.param("train", ["--qat", "--spatial-shards", "2"], "--spatial-shards",
                  id="train-argv1---qat"),
     pytest.param("train", ["--loss", "selfsup", "--stochastic-photo", "2", "--loader", "grain"],
@@ -179,11 +181,11 @@ def test_card_math_is_full_fp32_unless_tf32_is_asked_for(tf32_flags):
     pytest.param("train", ["--loss", "selfsup", "--half-res-photo", "--qat",
                            "--spatial-shards", "2"], "--spatial-shards",
                  id="train-argv3---half-res-photo"),
-    pytest.param("train", ["--fused-upsample", "--spatial-shards", "4"], "--spatial-shards",
-                 id="test_disp-argv4---int8"),
+    pytest.param("train", ["--fused-upsample", "--loss", "selfsup", "--spatial-shards", "4"],
+                 "--spatial-shards", id="test_disp-argv4---int8"),
     pytest.param("train", ["--loader", "device", "--qat", "--spatial-shards", "2"],
                  "--spatial-shards", id="train-argv5---loader"),
-    pytest.param("train", ["--loader", "device", "--steps-per-dispatch", "2",
+    pytest.param("train", ["--loader", "device", "--steps-per-dispatch", "2", "--qat",
                            "--spatial-shards", "2"], "--spatial-shards",
                  id="train-argv6---steps-per-dispatch"),
     pytest.param("train", ["--training-output-freq", "5", "--qat", "--spatial-shards", "2"],
